@@ -13,10 +13,15 @@ Phases, each fatal on failure (exit code 1, no result line):
 3. each kernel against its plain PyTorch version on the card at the
    production size (256 MiB buffers);
 4. the main path: one ``ProbeAgent.run_once()`` on CUDA with the
-   ``production`` environment's probe settings, which must be healthy, must
-   have launched every kernel, and must read no rate above the card's
-   published peak;
-5. each kernel's time beside its bound, its plain version's and one
+   ``production`` environment's probe settings as they are (the per-link
+   walk on: no link on one card), which must be healthy, must have launched
+   every kernel, and must read no rate above the card's published peak;
+5. one cycle with the multislice probe on (one slice: no pairs);
+6. the loop: ``ProbeAgent.start()`` at a 1 s interval for 5 cycles, then
+   ``stop()``; every cycle healthy, one heartbeat per cycle, every kernel
+   launched in every cycle; the first and the median steady-state cycle's
+   ``duration_ms`` are printed;
+7. each kernel's time beside its bound, its plain version's and one
    PyTorch library call's, at the main path's shapes.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
@@ -27,8 +32,10 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import statistics
 import subprocess
 import sys
+import threading
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -39,6 +46,7 @@ F32_FLOPS_PER_S = 67e12
 # a reading above peak by more than this means work was dropped
 PEAK_SLACK = 1.05
 MIB = 1 << 20
+LOOP_CYCLES = 5
 SOURCE = "k8s_watcher_tpu_torch/csrc/hbm.cu"
 
 
@@ -139,16 +147,15 @@ def main() -> int:
           f"blocksums max abs err {sums_err} with bad blocks {corrupted}")
     del x, got, want, y
 
-    # 4. the main path
+    # 4. the main path: the production settings as they are
     config = load_config("production", os.path.join(REPO, "config"))
-    config = dataclasses.replace(config, probe_links_enabled=False)
-    print("main path: production probe settings with links_enabled overridden to false "
-          "(the per-link walk is not ported yet)")
+    if not config.probe_links_enabled:
+        fail("the production settings no longer enable the per-link walk")
     build.reset_launch_counts()
     report = ProbeAgent(config, environment="production", sink=lambda n: None, device=dev).run_once()
     launches = build.launch_counts()
     payload = report.to_payload()
-    ici, mxu, hbm, hbm_w = payload["ici"], payload["mxu"], payload["hbm"], payload["hbm_write"]
+    ici, mxu, hbm, hbm_w, links = (payload[k] for k in ("ici", "mxu", "hbm", "hbm_write", "links"))
     readings = {
         "healthy": report.healthy,
         "psum_rtt_ms": ici["psum_rtt_ms"],
@@ -159,6 +166,7 @@ def main() -> int:
         "hbm_bytes": hbm.get("bytes"),
         "repeats": hbm.get("repeats"),
         "bad_block_count": hbm_w.get("bad_block_count"),
+        "links": links and {k: links[k] for k in ("ok", "n_links", "n_observed", "compile_ms", "error")},
         "duration_ms": payload["duration_ms"],
         # first call of each sub-probe: includes NCCL and library set-up
         "first_call_ms": {"ici": ici["compile_ms"], "hbm": hbm.get("compile_ms"),
@@ -169,9 +177,11 @@ def main() -> int:
         "launches": launches,
     }
     print("main path readings: " + json.dumps(readings))
-    for part, sub in (("ici", ici), ("mxu", mxu), ("hbm", hbm), ("hbm_write", hbm_w)):
-        if not sub.get("ok") or sub.get("error"):
+    for part, sub in (("ici", ici), ("mxu", mxu), ("hbm", hbm), ("hbm_write", hbm_w), ("links", links)):
+        if not sub or not sub.get("ok") or sub.get("error"):
             fail(f"{part} probe not ok: {sub}")
+    if links["n_links"] != 0 or links["n_observed"] != 0:
+        fail(f"a one-card grid has no link, but the walk measured {links['n_observed']}")
     if not report.healthy:
         fail(f"the cycle is unhealthy: devices {payload['devices']}, trend {payload['trend_alerts']}")
     for part, sub in (("hbm", hbm), ("hbm_write", hbm_w)):
@@ -199,7 +209,63 @@ def main() -> int:
         fail(f"GEMM chain on the card differs from the CPU chain: relative error {rel}")
     print(f"GEMM chain card vs CPU: relative error {rel}")
 
-    # 5. times at the main path's shapes
+    # 5. one cycle with the multislice probe on: one card is one slice
+    build.reset_launch_counts()
+    ms_report = ProbeAgent(dataclasses.replace(config, probe_multislice_enabled=True),
+                           environment="production", sink=lambda n: None, device=dev).run_once()
+    ms_launches = build.launch_counts()
+    ms = ms_report.to_payload()["multislice"]
+    print("multislice cycle: " + json.dumps({
+        "healthy": ms_report.healthy, "duration_ms": ms_report.duration_ms, "launches": ms_launches,
+        **{k: ms[k] for k in ("ok", "n_slices", "per_slice_sums", "ici_rtt_ms", "total_rtt_ms",
+                              "dcn_overhead_ms", "compile_ms", "pair_rtts", "error")},
+    }))
+    if not ms["ok"] or ms["error"] or ms["n_slices"] != 1 or ms["pair_rtts"] or ms["per_slice_sums"] != [1.0]:
+        fail(f"multislice probe on one card: {ms}")
+    if not ms_report.healthy or min(ms_launches.values()) <= 0:
+        fail(f"multislice cycle: healthy={ms_report.healthy}, launches {ms_launches}")
+
+    # 6. the loop: LOOP_CYCLES cycles at a 1 s interval
+    cycles, beats = [], []
+    enough = threading.Event()
+
+    def observe(cycle_report):
+        # on the agent thread, after the cycle's heartbeat: the launches since
+        # the last cycle are this cycle's
+        counts = build.launch_counts()
+        since = {k: counts[k] - sum(c["launches"][k] for c in cycles) for k in counts}
+        cycles.append({"healthy": cycle_report.healthy, "duration_ms": cycle_report.duration_ms,
+                       "launches": since})
+        if len(cycles) >= LOOP_CYCLES:
+            enough.set()
+
+    loop_agent = ProbeAgent(dataclasses.replace(config, probe_interval_seconds=1.0), environment="production",
+                            sink=lambda n: None, device=dev, heartbeat=lambda: beats.append(1))
+    loop_agent.report_observer = observe
+    build.reset_launch_counts()
+    loop_agent.start()
+    thread = loop_agent._thread
+    finished = enough.wait(120)
+    loop_agent.stop()
+    if not finished or thread.is_alive():
+        fail(f"the loop ran {len(cycles)} of {LOOP_CYCLES} cycles in 120 s (thread alive: {thread.is_alive()})")
+    errors = loop_agent.metrics.counter("probe_errors").value
+    print("loop cycles: " + json.dumps({"cycles": cycles, "heartbeats": len(beats), "probe_errors": errors}))
+    if len(beats) != len(cycles) or errors:
+        fail(f"{len(beats)} heartbeats and {errors} failed cycles for {len(cycles)} cycles")
+    for n, cycle in enumerate(cycles):
+        if not cycle["healthy"] or min(cycle["launches"].values()) <= 0:
+            fail(f"loop cycle {n}: healthy={cycle['healthy']}, launches {cycle['launches']}")
+    steady_ms = statistics.median(c["duration_ms"] for c in cycles)
+    print(json.dumps({
+        "first_cycle_duration_ms": payload["duration_ms"],
+        "steady_cycle_duration_ms_median": steady_ms,
+        "steady_cycle_duration_ms": [c["duration_ms"] for c in cycles],
+        "link_walk_compile_ms": links["compile_ms"],
+        "device": name, "power_limit": power_limit,
+    }))
+
+    # 7. times at the main path's shapes
     repeats = hbm["repeats"]
     x = torch.ones((rows, K.WIDTH), dtype=torch.float32, device=dev)
     y = K.fill_plain(torch.zeros((1, 1), device=dev), num_blocks, 1)

@@ -1,16 +1,13 @@
-"""Probe agent: one probe cycle on one node, reported through a sink.
+"""Probe agent: the probe cycle on a cadence, reported through a sink.
 
 The JAX package's ``probe/agent.py`` on PyTorch: the same cycle (inventory
-and liveness, chained all-reduce and bus bandwidth, chained bf16 GEMM, HBM
+and liveness, chained all-reduce and bus bandwidth, chained bf16 GEMM, the
+per-link walk and the multislice probe where the config enables them, HBM
 read sweep, HBM write with per-block integrity), the same trend gating,
-gauges and flight recorder. Rank 0 reports for the group; any other rank
-reports only when its own view is unhealthy.
-
-The link walk and the multislice probe come with their own slices: a config
-that enables either raises ``NotImplementedError`` here rather than being
-skipped silently. The loop mode (``start``/``stop``, the liveness heartbeat
-and the report observer that remediation hangs on) comes with the notifier,
-status-server and remediation slice.
+gauges and flight recorder, and the same loop (``start``/``stop``, a
+heartbeat per completed cycle, a report observer). Under ``torchrun`` every
+rank runs the agent and joins the collectives; rank 0 reports for the
+group, any other rank only when its own view is unhealthy.
 """
 
 from __future__ import annotations
@@ -21,7 +18,9 @@ import logging
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
+
+import numpy as np
 
 import torch
 
@@ -32,12 +31,13 @@ from k8s_watcher_tpu_torch.probe.device import (
     enumerate_devices,
     host_identity,
     host_identity_map,
-    local_devices,
     process_index,
     resolve_device,
 )
 from k8s_watcher_tpu_torch.probe.hbm import run_hbm_probe, run_hbm_write_probe
 from k8s_watcher_tpu_torch.probe.ici import run_ici_probe, run_mxu_probe
+from k8s_watcher_tpu_torch.probe.links import run_link_probe
+from k8s_watcher_tpu_torch.probe.multislice import run_multislice_probe
 from k8s_watcher_tpu_torch.probe.report import ProbeReport
 from k8s_watcher_tpu_torch.probe.trend import TrendTracker
 
@@ -58,17 +58,8 @@ class ProbeAgent:
         mesh=None,
         expected_platform: Optional[str] = "auto",
         device=None,
+        heartbeat: Optional[Callable[[], None]] = None,  # stamped per completed cycle
     ):
-        if tpu_config.probe_links_enabled:
-            raise NotImplementedError(
-                "tpu.probe.links_enabled: the per-link walk (probe/links.py) is not "
-                "ported yet; it comes with the links slice"
-            )
-        if tpu_config.probe_multislice_enabled:
-            raise NotImplementedError(
-                "tpu.probe.multislice_enabled: the multislice probe (probe/multislice.py) "
-                "is not ported yet; it comes with the multislice slice"
-            )
         self.config = tpu_config
         self.environment = environment
         self.sink = sink
@@ -78,6 +69,12 @@ class ProbeAgent:
         # "auto": the port's platform contract is CUDA — a probe finding only
         # the CPU reports unhealthy. Pass a platform (or None) for test runs.
         self.expected_platform = "cuda" if expected_platform == "auto" else expected_platform
+        self.heartbeat = heartbeat or (lambda: None)
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # optional per-report observer (remediation): sees every completed
+        # report, healthy or not, on the agent thread
+        self.report_observer: Optional[Callable[..., Any]] = None
         # flight recorder: last-N cycle summaries
         self._cycles: collections.deque = collections.deque(maxlen=64)
         self._cycles_lock = threading.Lock()
@@ -124,7 +121,7 @@ class ProbeAgent:
     def _run_once_inner(self) -> ProbeReport:
         t0 = time.monotonic()
         devices = enumerate_devices(
-            local_devices(self.device.type),
+            self.device,
             expected_per_host=self.config.expected_chips_per_host,
             expected_platform=self.expected_platform,
         )
@@ -134,6 +131,23 @@ class ProbeAgent:
             inner_iters=self.config.probe_matmul_inner_iters,
             device=self.device,
         )
+        links = None
+        if self.config.probe_links_enabled:
+            links = run_link_probe(
+                self.mesh,
+                rtt_factor=self.config.probe_link_rtt_factor,
+                rtt_floor_ms=self.config.probe_link_rtt_floor_ms,
+                device=self.device,
+            )
+        multislice = None
+        if self.config.probe_multislice_enabled:
+            # the (slices, hosts, gpus) grid has its own shape, built from the
+            # ranks per node, not from self.mesh
+            multislice = run_multislice_probe(
+                n_slices=self.config.probe_multislice_slices or None,
+                pair_localization=self.config.probe_multislice_pair_localization,
+                device=self.device,
+            )
         hbm = None
         hbm_write = None
         if self.config.probe_hbm_bytes > 0:
@@ -147,23 +161,37 @@ class ProbeAgent:
             mxu=mxu,
             hbm=hbm,
             hbm_write=hbm_write,
+            links=links,
+            multislice=multislice,
             host=host_identity(),
-            hosts=host_identity_map(),
+            hosts=host_identity_map(self.device),
             rtt_warn_ms=self.config.probe_rtt_warn_ms,
             duration_ms=1e3 * (time.monotonic() - t0),
         )
         # trend folding sees the PRE-TREND verdict: an unhealthy cycle is
         # judged for drift but must not shape the "healthy" anchor
-        report.trend_alerts = self._fold_trends(ici, mxu, hbm, hbm_write, cycle_healthy=report.healthy)
+        report.trend_alerts = self._fold_trends(
+            ici, mxu, hbm, hbm_write, links, multislice, cycle_healthy=report.healthy
+        )
         self.metrics.counter("probe_runs").inc()
         if ici.psum_rtt_ms >= 0:
             self.metrics.histogram("probe_psum_rtt").record(ici.psum_rtt_ms / 1e3)
         if not report.healthy:
             self.metrics.counter("probe_unhealthy").inc()
+        # a completed cycle, healthy or not, proves the agent alive; a cycle
+        # that raised or hangs stamps nothing, so liveness goes stale
+        self.heartbeat()
         self._record_cycle(report)
+        observer = self.report_observer
+        if observer is not None:
+            try:
+                observer(report)
+            except Exception as exc:  # noqa: BLE001 — an observer bug must not stop probing
+                logger.error("Probe report observer failed: %s", exc)
+                self.metrics.counter("probe_observer_errors").inc()
         return report
 
-    def _fold_trends(self, ici, mxu, hbm, hbm_write, *, cycle_healthy: bool = True) -> list:
+    def _fold_trends(self, ici, mxu, hbm, hbm_write, links, multislice, *, cycle_healthy: bool = True) -> list:
         """Publish each median reading as a gauge (cleared when the sub-probe
         failed, was unreliable or did not run) and fold it into the trend
         tracker; gated on the same ok fields ``ProbeReport.healthy`` uses."""
@@ -179,6 +207,15 @@ class ProbeAgent:
             and not hbm_write.get("interpreted")
             and not hbm_write.get("bandwidth_unreliable", False)
         )
+        # links: an errored walk withdraws the gauges, but a walk that found
+        # suspects is a valid reading (probe_link_suspects > 0 is what
+        # operators scrape for), so links.ok is not gated on
+        links_ok = links is not None and links.error is None and links.n_observed > 0
+        # multislice: likewise; the pair median trends the typical route,
+        # dcn_overhead_ms the cross-slice cost a fabric event inflates first
+        ms_ok = multislice is not None and multislice.error is None and not multislice.timing_unreliable
+        pair_valid = [p["rtt_ms"] for p in multislice.pair_rtts if p["rtt_ms"] >= 0] if ms_ok else []
+        pair_median = float(np.median(pair_valid)) if pair_valid else None
         # in a group of one rank the all-reduce "RTT" and "bandwidth" measure
         # host dispatch, not any link: gauges publish, trends do not fold
         ici_fabric = ici_ok and ici.n_devices > 1
@@ -189,7 +226,15 @@ class ProbeAgent:
             ("mxu_tflops_median", mxu.get("tflops_median", 0.0) if mxu_ok else None, True, True),
             ("hbm_read_gbps", hbm.get("read_gbps", 0.0) if hbm_ok else None, True, True),
             ("hbm_write_gbps", hbm_write.get("write_gbps", 0.0) if hbm_w_ok else None, True, True),
+            ("link_median_rtt_ms", links.median_rtt_ms if links_ok else None, False, True),
+            ("dcn_pair_median_rtt_ms", pair_median, False, True),
+            ("dcn_overhead_ms", multislice.dcn_overhead_ms if ms_ok and multislice.n_slices > 1 else None,
+             False, True),
         ]
+        if links_ok:
+            self.metrics.gauge("probe_link_suspects").set(len(links.suspect_links))
+        elif links is not None:
+            self.metrics.gauge("probe_link_suspects").clear()
         alerts = []
         for name, value, higher_is_better, trend_eligible in readings:
             gauge = self.metrics.gauge(f"probe_{name}")
@@ -230,8 +275,8 @@ class ProbeAgent:
             "hbm_read_gbps": round(report.hbm.get("read_gbps", 0.0), 1) if report.hbm else None,
             "hbm_write_gbps": round(report.hbm_write.get("write_gbps", 0.0), 1)
             if report.hbm_write else None,
-            "link_suspects": None,
-            "dcn_suspect_slices": None,
+            "link_suspects": len(report.links.suspect_links) if report.links else None,
+            "dcn_suspect_slices": list(report.multislice.dcn_suspect_slices) if report.multislice else None,
             "trend_alerts": [
                 {"metric": a.metric, "direction": a.direction, "ratio": round(a.ratio, 2)}
                 for a in (report.trend_alerts or [])
@@ -245,3 +290,29 @@ class ProbeAgent:
         with self._cycles_lock:
             entries = list(self._cycles)
         return entries[::-1][: max(0, n)]
+
+    def _loop(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)  # the current device is per thread
+        while not self._stop.is_set():
+            try:
+                self._report(self.run_once())
+            except Exception as exc:  # noqa: BLE001 — one failed cycle must not end the loop
+                logger.error("Probe iteration failed: %s", exc)
+                self.metrics.counter("probe_errors").inc()
+            if self._stop.wait(self.config.probe_interval_seconds):
+                return
+
+    def start(self) -> None:
+        """Run a cycle every ``interval_seconds`` on a daemon thread."""
+        if self._thread is not None:
+            return
+        self._thread = threading.Thread(target=self._loop, name="probe-agent", daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        """Stop after the cycle in flight (waiting up to 5 s for it)."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5.0)
+            self._thread = None

@@ -1,8 +1,11 @@
 """Device inventory, liveness and host identity (the JAX package's ``probe/device.py``).
 
-Each local GPU is reported with identity, rank and memory use, and a
-one-element computation (``2 * 2 == 4``) isolates a GPU that enumerates but
-cannot execute.
+Each GPU of the node is listed with its identity. Only this rank's own GPU
+is touched: its memory use is read and a one-element computation
+(``2 * 2 == 4``) isolates a GPU that enumerates but cannot execute. The
+node's other GPUs belong to other ranks, are counted without a CUDA context
+and listed with ``alive: None``, as the JAX package lists remote chips: a
+rank that touched every GPU would put a context (and its memory) on each.
 """
 
 from __future__ import annotations
@@ -11,7 +14,7 @@ import json
 import logging
 import os
 import socket
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -50,7 +53,8 @@ def process_count() -> int:
 
 
 def local_devices(device_type: str) -> List[torch.device]:
-    """Every device of this node of the given type (each GPU, or the CPU)."""
+    """Every device of this node of the given type (each GPU, or the CPU).
+    Counting GPUs creates no context on them."""
     if device_type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("a CUDA inventory was asked for, but torch.cuda.is_available() is False")
@@ -99,25 +103,60 @@ def _encode_identity_wire(identity: Dict[str, Any]) -> bytes:
     return json.dumps({"process_index": identity["process_index"]}).encode("utf-8")
 
 
-def host_identity_map() -> Dict[str, Dict[str, Any]]:
-    """``str(rank) -> host_identity()`` for every rank."""
+# str(rank) -> identity, gathered once per default group: identities are
+# stable, and the gather is a collective not worth repeating every cycle
+_IDENTITY_MAPS: Dict[Any, Dict[str, Dict[str, Any]]] = {}
+
+
+def host_identity_map(device: Optional[torch.device] = None) -> Dict[str, Dict[str, Any]]:
+    """``str(rank) -> host_identity()`` for every rank.
+
+    A suspect GPU found by the link walk lives on another rank, but rank 0
+    reports: this map names the node to drain. Several ranks gather one
+    fixed-size utf-8 buffer each (``all_gather_into_tensor``; on ``device``
+    under NCCL, on the CPU under gloo) once per default group; a row that
+    does not decode keeps its index with an ``error``."""
     if process_count() == 1:
         mine = host_identity()
         return {str(mine["process_index"]): mine}
-    raise NotImplementedError(
-        "the multi-rank identity gather (a 512-byte all_gather per rank) is "
-        "ported with the links slice; this slice runs one rank per probe"
-    )
+    world = dist.group.WORLD
+    cached = _IDENTITY_MAPS.get(world)
+    if cached is not None:
+        return cached
+    if dist.get_backend() == "nccl":
+        device = device if device is not None and device.type == "cuda" else torch.device(
+            "cuda", torch.cuda.current_device())
+    else:
+        device = torch.device("cpu")
+    raw = _encode_identity_wire(host_identity())
+    buf = torch.zeros(_IDENTITY_WIRE_BYTES, dtype=torch.uint8)
+    buf[: len(raw)] = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    n = process_count()
+    gathered = torch.empty(n * _IDENTITY_WIRE_BYTES, dtype=torch.uint8, device=device)
+    dist.all_gather_into_tensor(gathered, buf.to(device))
+    rows = gathered.cpu().view(n, _IDENTITY_WIRE_BYTES).numpy()
+    out: Dict[str, Dict[str, Any]] = {}
+    for idx in range(n):
+        row = rows[idx].tobytes().rstrip(b"\x00")
+        try:
+            out[str(idx)] = json.loads(row.decode("utf-8"))
+        except (ValueError, UnicodeDecodeError):
+            # keep the index mapped: the operator still sees WHICH rank is unidentifiable
+            out[str(idx)] = {"process_index": idx, "error": "identity decode failed"}
+    _IDENTITY_MAPS[world] = out
+    return out
 
 
-def _device_entry(device: torch.device) -> Dict[str, Any]:
+def _device_entry(device: torch.device, own: bool) -> Dict[str, Any]:
+    """Identity of ``device``; rank and memory use only for this rank's own
+    (querying memory makes a CUDA context)."""
     entry: Dict[str, Any] = {
         "id": device_id(device),
         "platform": device.type,
         "device_kind": torch.cuda.get_device_properties(device).name if device.type == "cuda" else device.type,
-        "process_index": process_index(),
+        "process_index": process_index() if own else None,
     }
-    if device.type == "cuda":
+    if own and device.type == "cuda":
         free, total = torch.cuda.mem_get_info(device)
         entry["memory"] = {"bytes_in_use": total - free, "bytes_limit": total}
     return entry
@@ -134,23 +173,28 @@ def _device_alive(device: torch.device) -> bool:
 
 
 def enumerate_devices(
-    devices: Optional[Sequence[torch.device]] = None,
+    own: Optional[torch.device] = None,
     *,
     expected_per_host: int = 0,
     check_liveness: bool = True,
     expected_platform: Optional[str] = None,
 ) -> Dict[str, Any]:
-    """Inventory of this node's devices (default: every GPU) + liveness verdicts.
+    """Inventory of this node's devices of ``own``'s type + liveness verdicts.
 
-    ``expected_per_host > 0`` flags a node that enumerates fewer GPUs than
-    the deployment demands; ``expected_platform`` (``"cuda"``) flags devices
-    on the wrong backend, so a probe measuring the CPU never reports healthy."""
-    devices = list(devices if devices is not None else local_devices("cuda"))
+    ``own`` is this rank's device (default: :func:`resolve_device`); only it
+    is checked for liveness and memory, the node's other GPUs are listed
+    with ``alive: None``. ``expected_per_host > 0`` flags a node that
+    enumerates fewer GPUs than the deployment demands; ``expected_platform``
+    (``"cuda"``) flags devices on the wrong backend, so a probe measuring
+    the CPU never reports healthy."""
+    own = resolve_device(own)
+    devices = local_devices(own.type)
     entries: List[Dict[str, Any]] = []
     healthy = 0
     for device in devices:
-        entry = _device_entry(device)
-        entry["alive"] = _device_alive(device) if check_liveness else None
+        mine = device == own
+        entry = _device_entry(device, mine)
+        entry["alive"] = _device_alive(device) if check_liveness and mine else None
         if entry["alive"] is not False:
             healthy += 1
         entries.append(entry)

@@ -19,8 +19,8 @@ class ProbeReport:
     mxu: Optional[Dict[str, Any]] = None
     hbm: Optional[Dict[str, Any]] = None
     hbm_write: Optional[Dict[str, Any]] = None  # write-bw + block integrity
-    links: Optional[Any] = None  # ported with the links slice
-    multislice: Optional[Any] = None  # ported with the multislice slice
+    links: Optional[Any] = None  # probe.links.LinkProbeResult
+    multislice: Optional[Any] = None  # probe.multislice.MultiSliceProbeResult
     # sustained cross-cycle drift alerts (probe.trend.TrendAlert list)
     trend_alerts: List[Any] = dataclasses.field(default_factory=list)
     host: Optional[Dict[str, Any]] = None  # probe/device.py:host_identity

@@ -3,13 +3,15 @@
 Usage: ``python -m k8s_watcher_tpu_torch.probe_agent [environment] --once [--cpu]``
 
 Reads the environment's ``tpu.probe`` settings from ``config/`` (relative to
-the working directory), runs one cycle on this rank's GPU (``--cpu``: on the
-CPU, with the kernels' plain versions, held to the ``cpu`` platform), prints the payload as JSON and exits
-1 when the report is unhealthy. Under ``torchrun`` every rank runs the cycle.
-Loop mode needs the notifier, the status server and remediation, which are
-not ported yet: without ``--once`` the command exits 2, as it does when the
-config enables a sub-probe that is not ported yet (the link walk, enabled in
-``production``; the multislice probe).
+the working directory), runs one cycle with every sub-probe they enable (the
+per-link walk in ``production``) on this rank's GPU (``--cpu``: on the CPU,
+with the kernels' plain versions, held to the ``cpu`` platform), prints the
+payload as JSON and exits 1 when the report is unhealthy. Under ``torchrun
+--nproc-per-node N`` every rank runs the cycle and joins the collectives.
+
+The agent's loop (``ProbeAgent.start``/``stop``) is ported, but the loop
+command also serves the notifier, the status server and remediation, which
+are not: without ``--once`` the command exits 2.
 """
 
 from __future__ import annotations
@@ -44,18 +46,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     environment = resolve_environment(args[:1])
     config = load_config(environment)
     on_cpu = "--cpu" in flags
-    try:
-        agent = ProbeAgent(
-            config,
-            environment=environment,
-            sink=lambda notification: None,
-            device="cpu" if on_cpu else None,
-            # an explicit --cpu run is held to the CPU; by default the contract is CUDA
-            expected_platform="cpu" if on_cpu else "auto",
-        )
-    except NotImplementedError as exc:
-        print(f"not ported yet: {exc}", file=sys.stderr)
-        return 2
+    agent = ProbeAgent(
+        config,
+        environment=environment,
+        sink=lambda notification: None,
+        device="cpu" if on_cpu else None,
+        # an explicit --cpu run is held to the CPU; by default the contract is CUDA
+        expected_platform="cpu" if on_cpu else "auto",
+    )
     try:
         report = agent.run_once()
     finally:

@@ -2,7 +2,8 @@
 
 A subprocess, because ``tests/conftest.py`` imports jax into this one. It
 imports every module of ``k8s_watcher_tpu_torch``, runs one CPU probe cycle
-through the ``probe_agent`` entry point, and reports what ``sys.modules``
+through the ``probe_agent`` entry point with the ``production`` settings
+(the per-link walk on), and reports what ``sys.modules``
 holds afterwards.
 """
 
@@ -22,12 +23,13 @@ for name in names:
 from k8s_watcher_tpu_torch import probe_agent
 out = io.StringIO()
 with contextlib.redirect_stdout(out):
-    rc = probe_agent.main(["development", "--once", "--cpu"])
+    rc = probe_agent.main(["production", "--once", "--cpu"])
 payload = json.loads(out.getvalue())
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
                 or m == "k8s_watcher_tpu" or m.startswith("k8s_watcher_tpu."))
-print(json.dumps({"modules": names, "rc": rc, "healthy": payload["healthy"], "forbidden": loaded}))
+print(json.dumps({"modules": names, "rc": rc, "healthy": payload["healthy"], "links": payload["links"],
+                  "forbidden": loaded}))
 """
 
 
@@ -39,9 +41,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     result = json.loads(proc.stdout.strip().splitlines()[-1])
     assert result["forbidden"] == []
     assert result["rc"] == 0 and result["healthy"] is True
+    assert result["links"] is not None and result["links"]["ok"]
     for module in ("config", "metrics", "notification", "carry", "probe_agent",
                    "probe.timing", "probe.device", "probe.hbm", "probe.ici", "probe.trend",
-                   "probe.report", "probe.agent", "kernels.build", "kernels.hbm",
+                   "probe.report", "probe.agent", "probe.links", "probe.multislice",
+                   "kernels.build", "kernels.hbm",
                    "faults.ici", "parallel.mesh", "parallel.collectives"):
         assert f"k8s_watcher_tpu_torch.{module}" in result["modules"], module
 

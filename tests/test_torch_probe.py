@@ -2,14 +2,15 @@
 
 Inputs are made with numpy from a seed and handed to both packages. The JAX
 side runs on the suite's virtual CPU devices; the port runs gloo process
-groups (one rank in this process, four in spawned processes).
+groups (one rank in this process; four ranks forked from one spawned process,
+tests/test_torch_ranks.py).
 """
 
 import json
-import os
-import subprocess
-import sys
+import threading
+import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,7 @@ from k8s_watcher_tpu_torch.probe.agent import ProbeAgent
 from k8s_watcher_tpu_torch.probe.ici import mxu_chain, run_ici_probe
 from k8s_watcher_tpu_torch.probe.timing import TimedStats, timed_fenced
 from k8s_watcher_tpu_torch.probe.trend import TrendTracker
+from test_torch_ranks import run_ranks
 
 REPO = Path(__file__).resolve().parent.parent
 CPU = torch.device("cpu")
@@ -85,11 +87,12 @@ def test_one_rank_matches_one_device_mesh():
 
 
 _RANK_WORKER = """
-import json, sys
-import torch
-import torch.distributed as dist
-rank, store, out_path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-dist.init_process_group("gloo", store=dist.FileStore(store, 4), rank=rank, world_size=4)
+from k8s_watcher_tpu_torch.probe import device
+os.environ["NODE_NAME"] = ["gpu-node-0", "\\u00fc" * 300, "gpu-node-1", "gpu-node-1"][rank]
+if rank == 3:
+    device._encode_identity_wire = lambda identity: b"\\xff\\xfe{"
+identities = device.host_identity_map()
+cached = device.host_identity_map() is identities
 from k8s_watcher_tpu_torch.faults.ici import IciFaultSpec
 from k8s_watcher_tpu_torch.parallel import collectives as c
 from k8s_watcher_tpu_torch.parallel.mesh import host_chip_mesh
@@ -102,34 +105,17 @@ out = {
     "faulty": run_ici_probe(mesh, fault=fault, **args).to_dict(),
     "psum": c.make_psum_probe(mesh, 4)(c.psum_probe_input(mesh)).tolist(),
     "psum_faulty": c.make_psum_probe(mesh, 4, fault)(c.psum_probe_input(mesh)).tolist(),
+    "identities": identities,
+    "identity_cached": cached,
+    "identity": device.host_identity(),
 }
 with open(out_path, "w") as fh:
     json.dump(out, fh)
-dist.destroy_process_group()
 """
 
 
 def test_four_ranks_match_four_device_mesh(tmp_path):
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("WORLD_SIZE", "MASTER_ADDR", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
-    env["PYTHONPATH"] = str(REPO)
-    procs = [
-        subprocess.Popen(
-            [sys.executable, "-c", _RANK_WORKER, str(r), str(tmp_path / "store"), str(tmp_path / f"{r}.json")],
-            env=env, cwd=str(REPO), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        )
-        for r in range(4)
-    ]
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=60)
-            assert p.returncode == 0, out.decode(errors="replace")[-3000:]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    results = [json.loads((tmp_path / f"{r}.json").read_text()) for r in range(4)]
+    results = run_ranks(_RANK_WORKER, 4, tmp_path)
 
     devices = jax.devices()[:4]
     mesh = ref_mesh(devices)
@@ -151,6 +137,18 @@ def test_four_ranks_match_four_device_mesh(tmp_path):
         assert got["clean"]["psum_correct"] and not got["faulty"]["psum_correct"]
         assert got["clean"]["n_devices"] == 4
         assert got["clean"]["bandwidth_gbps"] > 0 and want_clean.bandwidth_gbps > 0
+
+    # the identity gather: every rank holds every rank's identity, as the
+    # reference's wire format clips it, with a row that does not decode
+    # mapped to an error under its index
+    want_identities = {
+        str(r): json.loads(ref_device._encode_identity_wire(results[r]["identity"])) for r in range(3)
+    }
+    want_identities["3"] = {"process_index": 3, "error": "identity decode failed"}
+    assert want_identities["1"]["node_name"] == "\u00fc" * 90  # clipped to 180 bytes
+    for got in results:
+        assert got["identities"] == want_identities
+        assert got["identity_cached"] is True
 
 
 def test_apply_fault_names_one_rank():
@@ -261,10 +259,30 @@ class TestDevice:
             device.local_devices("cuda")
 
     def test_inventory_verdicts(self):
-        out = device.enumerate_devices([CPU], expected_per_host=2, expected_platform="cuda")
+        out = device.enumerate_devices(CPU, expected_per_host=2, expected_platform="cuda")
         assert out["healthy_devices"] == 1 and out["devices"][0]["alive"] is True
         assert out["missing_local_devices"] == 1 and out["platform_mismatch"] == 1
-        assert device.enumerate_devices([CPU], check_liveness=False)["devices"][0]["alive"] is None
+        assert device.enumerate_devices(CPU, check_liveness=False)["devices"][0]["alive"] is None
+
+    def test_inventory_touches_only_its_own_gpu(self, monkeypatch):
+        # a node of four GPUs, this rank driving cuda:2: only cuda:2 gets a
+        # liveness computation and a memory query (each would make a context)
+        touched = []
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+        monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d: SimpleNamespace(name="H100"))
+        monkeypatch.setattr(torch.cuda, "mem_get_info", lambda d: touched.append(("memory", d)) or (3, 10))
+        monkeypatch.setattr(device, "_device_alive", lambda d: touched.append(("alive", d)) or True)
+        own = torch.device("cuda", 2)
+        out = device.enumerate_devices(own, expected_per_host=4, expected_platform="cuda")
+        assert touched == [("memory", own), ("alive", own)]
+        assert [d["alive"] for d in out["devices"]] == [None, None, True, None]
+        assert [d["process_index"] for d in out["devices"]] == [None, None, 0, None]
+        assert "memory" in out["devices"][2] and "memory" not in out["devices"][0]
+        assert out["visible_devices"] == out["local_devices"] == out["healthy_devices"] == 4
+        assert out["missing_local_devices"] == 0 and out["platform_mismatch"] == 0
+        # the reference's remote chips are listed the same way
+        assert set(out["devices"][0]) | {"memory"} == set(out["devices"][2])
 
 
 class TestAgent:
@@ -278,13 +296,75 @@ class TestAgent:
 
     @pytest.mark.parametrize("flag", ["probe_links_enabled", "probe_multislice_enabled"])
     def test_unported_sub_probes_raise(self, flag):
-        with pytest.raises(NotImplementedError, match="slice"):
-            self.make(**{flag: True})
+        """The optional sub-probes run on one rank, land in the report and
+        the flight recorder, and keep the cycle healthy, as in the reference."""
+        cfg = dict(SLICE_CONFIG, probe_hbm_bytes=0, **{flag: True})
+        want = RefAgent(RefTpuConfig(**cfg), environment="test", sink=lambda n: None,
+                        mesh=ref_mesh(jax.devices()[:1]), expected_platform="cpu").run_once()
+        report = self.make(**{flag: True}).run_once()
+        assert report.healthy is want.healthy is True
+        part = "links" if flag == "probe_links_enabled" else "multislice"
+        got, ref = report.to_payload()[part], want.to_payload()[part]
+        assert got is not None and got["ok"] and got["error"] is None
+        assert set(got) == set(ref)
+        cycle = self.make(**{flag: True})
+        cycle.run_once()
+        entry = cycle.recent_cycles(1)[0]
+        assert entry["link_suspects" if part == "links" else "dcn_suspect_slices"] in (0, [])
 
     def test_entry_point_refuses_unported_production_links(self, monkeypatch, capsys):
+        """``production`` (links_enabled) runs through the entry point on the CPU."""
         monkeypatch.chdir(REPO)
-        assert probe_agent.main(["production", "--once", "--cpu"]) == 2
-        assert "links slice" in capsys.readouterr().err
+        assert probe_agent.main(["production", "--once", "--cpu"]) == 0
+        payload = json.loads(capsys.readouterr().out)
+        assert payload["healthy"] is True
+        assert payload["links"] is not None and payload["links"]["ok"] and payload["links"]["n_links"] == 0
+
+    def test_loop_heartbeat_and_observer_errors(self):
+        beats, seen = [], []
+        done = threading.Event()
+
+        def observer(report):
+            seen.append(report.healthy)
+            if len(seen) >= 3:
+                done.set()
+            raise RuntimeError("observer bug")
+
+        agent = ProbeAgent(TpuConfig(**dict(SLICE_CONFIG, probe_hbm_bytes=0, probe_interval_seconds=0.01)),
+                           environment="test", sink=self.sent.append, expected_platform="cpu",
+                           device="cpu", heartbeat=lambda: beats.append(1))
+        agent.report_observer = observer
+        agent.start()
+        agent.start()  # a second start is a no-op
+        thread = agent._thread
+        try:
+            assert done.wait(60)
+        finally:
+            agent.stop()
+        assert not thread.is_alive() and agent._thread is None
+        cycles = agent.metrics.counter("probe_runs").value
+        assert cycles >= 3 and len(beats) == len(seen) == cycles and all(seen)
+        assert agent.metrics.counter("probe_observer_errors").value == cycles
+        assert len(self.sent) == cycles  # rank 0 reports every cycle
+        assert agent.metrics.counter("probe_errors").value == 0
+
+    def test_loop_counts_a_failed_cycle(self, monkeypatch):
+        agent = self.make(probe_interval_seconds=0.01)
+        calls = []
+
+        def failing():
+            calls.append(1)
+            raise RuntimeError("cycle failed")
+
+        monkeypatch.setattr(agent, "run_once", failing)
+        agent.start()
+        try:
+            deadline = time.monotonic() + 30
+            while agent.metrics.counter("probe_errors").value < 2 and time.monotonic() < deadline:
+                time.sleep(0.01)
+        finally:
+            agent.stop()
+        assert agent.metrics.counter("probe_errors").value >= 2 and self.sent == []
 
     def test_auto_platform_is_cuda(self):
         agent = ProbeAgent(TpuConfig(**dict(SLICE_CONFIG, probe_hbm_bytes=0)), environment="test",
