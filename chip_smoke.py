@@ -22,7 +22,13 @@ Phases, each fatal on failure (exit code 1, no result line):
    launched in every cycle; the first and the median steady-state cycle's
    ``duration_ms`` are printed;
 7. each kernel's time beside its bound, its plain version's and one
-   PyTorch library call's, at the main path's shapes.
+   PyTorch library call's, at the main path's shapes;
+8. the deployment loop: ``probe_agent.run_loop`` with the ``production``
+   settings (notifier, status server, dry-run remediation), pointed at a
+   receiver and a stub apiserver that the script serves on 127.0.0.1, for
+   at least 5 cycles at a 1 s interval; every cycle healthy with every
+   kernel launched, one POSTed probe payload per cycle, the status routes
+   answering, no node patched, and the stop within 10 s.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -30,12 +36,17 @@ The last line of standard output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import http.client
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -48,6 +59,9 @@ PEAK_SLACK = 1.05
 MIB = 1 << 20
 LOOP_CYCLES = 5
 SOURCE = "k8s_watcher_tpu_torch/csrc/hbm.cu"
+NODE_NAME = "chip-smoke-node"
+API_KEY = "chip-smoke-key"
+STOP_LIMIT_S = 10.0
 
 
 def fail(message: str) -> None:
@@ -70,6 +84,80 @@ def cuda_ms(torch, fn, warm: int = 2, n: int = 5) -> float:
     return start.elapsed_time(stop) / n
 
 
+class _Recorder(BaseHTTPRequestHandler):
+    """Phase 8's local servers: the cluster API receiver (POSTs) and the stub
+    apiserver (``/version``, the node list, one node); every request is
+    recorded as ``(method, path, Authorization, body)``."""
+
+    protocol_version = "HTTP/1.1"
+    disable_nagle_algorithm = True
+    requests: list = []
+
+    def log_message(self, *a):
+        pass
+
+    def _answer(self, status: int, body=None) -> None:
+        data = json.dumps(body).encode() if body is not None else b""
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _record(self):
+        body = self.rfile.read(int(self.headers.get("Content-Length", 0) or 0))
+        self.requests.append((self.command, self.path, self.headers.get("Authorization"),
+                              json.loads(body) if body else None))
+
+    def do_POST(self):  # noqa: N802
+        self._record()
+        self._answer(200)
+
+    def do_GET(self):  # noqa: N802
+        self._record()
+        node = {"metadata": {"name": NODE_NAME, "resourceVersion": "1"}, "spec": {}}
+        path = self.path.split("?")[0]
+        if path == "/version":
+            self._answer(200, {"major": "1", "minor": "31"})
+        elif path == "/api/v1/nodes":
+            self._answer(200, {"kind": "NodeList", "metadata": {"resourceVersion": "1"}, "items": [node]})
+        elif path == f"/api/v1/nodes/{NODE_NAME}":
+            self._answer(200, node)
+        else:
+            self._answer(404, {"kind": "Status", "code": 404})
+
+    def do_PATCH(self):  # noqa: N802
+        self._record()
+        self._answer(200, {"metadata": {"name": NODE_NAME}, "spec": {}})
+
+
+def serve(name: str) -> ThreadingHTTPServer:
+    server = ThreadingHTTPServer(("127.0.0.1", 0), type(name, (_Recorder,), {"requests": []}))
+    server.daemon_threads = True
+    threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.1}, daemon=True).start()
+    return server
+
+
+def http_get(port: int, path: str):
+    """(status, body) of one GET to 127.0.0.1:port, JSON decoded where it is JSON."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+    try:
+        conn.request("GET", path)
+        response = conn.getresponse()
+        body = response.read()
+        if response.getheader("Content-Type", "").startswith("application/json"):
+            body = json.loads(body)
+        return response.status, body
+    finally:
+        conn.close()
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def bound(bytes_moved: float, f32_ops: float):
     """(least ms, what bounds it) from bytes over HBM rate and ops over peak."""
     by_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
@@ -84,7 +172,8 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA GPU")
     sys.path.insert(0, REPO)
     try:
-        from k8s_watcher_tpu_torch.config import load_config
+        from k8s_watcher_tpu_torch import probe_agent
+        from k8s_watcher_tpu_torch.config import load_agent_config, load_config
         from k8s_watcher_tpu_torch.kernels import build
         from k8s_watcher_tpu_torch.kernels import hbm as K
         from k8s_watcher_tpu_torch.probe.agent import ProbeAgent
@@ -309,6 +398,130 @@ def main() -> int:
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms,
         })
+
+    # 8. the deployment loop, as the DaemonSet runs it, against local servers
+    receiver, apiserver = serve("Receiver"), serve("ApiServer")
+    status_port = free_port()
+    kubeconfig_dir = tempfile.TemporaryDirectory()
+    kubeconfig = os.path.join(kubeconfig_dir.name, "kubeconfig")
+    with open(kubeconfig, "w") as fh:
+        json.dump({
+            "apiVersion": "v1", "kind": "Config", "current-context": "stub",
+            "clusters": [{"name": "stub", "cluster": {"server": f"http://127.0.0.1:{apiserver.server_address[1]}"}}],
+            "contexts": [{"name": "stub", "context": {"cluster": "stub", "user": "stub"}}],
+            "users": [{"name": "stub", "user": {"token": "stub-token"}}],
+        }, fh)
+    agent_config = load_agent_config("production", os.path.join(REPO, "config"), env={
+        "CLUSTERAPI_BASE_URL": f"http://127.0.0.1:{receiver.server_address[1]}", "PROD_CLUSTERAPI_API_KEY": API_KEY,
+    })
+    agent_config = dataclasses.replace(
+        agent_config,
+        kubernetes=dataclasses.replace(agent_config.kubernetes, use_incluster_config=False, config_file=kubeconfig),
+        tpu=dataclasses.replace(agent_config.tpu, probe_interval_seconds=1.0, probe_status_port=status_port),
+    )
+    if not (agent_config.tpu.remediation_enabled and agent_config.tpu.remediation_dry_run):
+        fail("the production settings no longer arm dry-run remediation")
+    os.environ["NODE_NAME"] = NODE_NAME
+    loop_cycles, built = [], []
+    enough, stop = threading.Event(), threading.Event()
+
+    def started(loop):
+        # count each cycle's launches on the agent thread, then run the policy
+        policy_observer = loop.agent.report_observer
+
+        def observe(cycle_report):
+            counts = build.launch_counts()
+            since = {k: counts[k] - sum(c["launches"][k] for c in loop_cycles) for k in counts}
+            loop_cycles.append({"healthy": cycle_report.healthy, "duration_ms": cycle_report.duration_ms,
+                                "launches": since})
+            if policy_observer is not None:
+                policy_observer(cycle_report)
+            if len(loop_cycles) >= LOOP_CYCLES:
+                enough.set()
+
+        loop.agent.report_observer = observe
+        built.append(loop)
+
+    errors = []
+
+    def run():
+        try:
+            probe_agent.run_loop(agent_config, "production", stop, device=dev, started=started)
+        except BaseException as exc:  # noqa: BLE001 — reported below, fatal
+            errors.append(exc)
+            enough.set()
+
+    build.reset_launch_counts()
+    runner = threading.Thread(target=run, name="agent-loop", daemon=True)
+    runner.start()
+    finished = enough.wait(180)
+    routes = {}
+    if finished and not errors:
+        n_seen = len(loop_cycles)
+        for route in ("/healthz", "/metrics?format=prometheus", "/debug/probes?n=5", "/debug/trend",
+                      "/debug/remediation"):
+            routes[route] = http_get(status_port, route)
+    t_stop = time.monotonic()
+    stop.set()
+    runner.join(60)
+    stop_s = time.monotonic() - t_stop
+    receiver.shutdown(), apiserver.shutdown()
+    receiver.server_close(), apiserver.server_close()
+    kubeconfig_dir.cleanup()
+    if errors:
+        fail(f"the agent loop raised: {errors[0]!r}")
+    if not finished or not built:
+        fail(f"the agent loop ran {len(loop_cycles)} of {LOOP_CYCLES} cycles in 180 s")
+    if runner.is_alive() or stop_s > STOP_LIMIT_S or not built[0].joined:
+        fail(f"the loop did not stop within {STOP_LIMIT_S} s: {stop_s:.1f} s, joined={built[0].joined}")
+    loop = built[0]
+    posts = [r for r in receiver.RequestHandlerClass.requests if r[0] == "POST"]
+    api_calls = [(m, p) for m, p, _, _ in apiserver.RequestHandlerClass.requests]
+    counters = {k: loop.agent.metrics.counter(k).value for k in ("probe_runs", "probe_errors", "probe_observer_errors")}
+    counters.update({k: loop.dispatcher.metrics.counter(k).value for k in ("dispatch_sent", "dispatch_failed")})
+    durations = [c["duration_ms"] for c in loop_cycles]
+    print("deployment loop: " + json.dumps({
+        "cycles": len(loop_cycles), "launches_per_cycle": [c["launches"] for c in loop_cycles],
+        "posts": len(posts), "apiserver_requests": api_calls, "counters": counters, "stop_s": stop_s,
+        "routes": {r: (status, body if isinstance(body, dict) else len(body)) for r, (status, body) in routes.items()},
+    }))
+    for n, cycle in enumerate(loop_cycles):
+        if not cycle["healthy"] or min(cycle["launches"].values()) <= 0:
+            fail(f"deployment loop cycle {n}: healthy={cycle['healthy']}, launches {cycle['launches']}")
+    if counters["probe_errors"] or counters["probe_observer_errors"]:
+        fail(f"deployment loop counters: {counters}")
+    if len(posts) != len(loop_cycles) or any(
+            path != "/api/pods/update" or auth != f"Bearer {API_KEY}" or body.get("event_type") != "TPU_PROBE"
+            for _, path, auth, body in posts):
+        fail(f"{len(posts)} POSTs for {len(loop_cycles)} cycles: {[(p, a) for _, p, a, _ in posts]}")
+    status, health = routes["/healthz"]
+    if status != 200 or health.get("alive") is not True:
+        fail(f"/healthz: {status} {health}")
+    status, text = routes["/metrics?format=prometheus"]
+    values = dict(line.rsplit(" ", 1) for line in text.decode().splitlines() if not line.startswith("#"))
+    runs = float(values.get("k8s_watcher_probe_runs_total", 0))
+    gauges = ("k8s_watcher_probe_hbm_read_gbps", "k8s_watcher_probe_hbm_write_gbps",
+              "k8s_watcher_probe_mxu_tflops_median")
+    if status != 200 or runs < n_seen or any(g not in values for g in gauges):
+        fail(f"/metrics: {status}, probe_runs {runs} for {n_seen} cycles, gauges {[g in values for g in gauges]}")
+    status, probes = routes["/debug/probes?n=5"]
+    if status != 200 or len(probes["probes"]) != 5 or not all(p["healthy"] for p in probes["probes"]):
+        fail(f"/debug/probes?n=5: {status} {probes}")
+    if routes["/debug/trend"][0] != 200:
+        fail(f"/debug/trend: {routes['/debug/trend']}")
+    status, remediation = routes["/debug/remediation"]
+    state = remediation.get("remediation") or {}
+    if status != 200 or state.get("dry_run") is not True or state.get("streaks") != {}:
+        fail(f"/debug/remediation: {status} {remediation}")
+    if ("GET", "/version") not in api_calls or not any(
+            m == "GET" and p.split("?")[0] == "/api/v1/nodes" for m, p in api_calls) or any(
+            m == "PATCH" for m, _ in api_calls):
+        fail(f"apiserver requests: {api_calls}")
+    print(json.dumps({
+        "deployment_loop_cycle_duration_ms": durations,
+        "deployment_loop_cycle_duration_ms_median": statistics.median(durations),
+        "stop_s": stop_s, "device": name, "power_limit": power_limit,
+    }))
 
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()

@@ -310,9 +310,13 @@ class ProbeAgent:
         self._thread = threading.Thread(target=self._loop, name="probe-agent", daemon=True)
         self._thread.start()
 
-    def stop(self) -> None:
-        """Stop after the cycle in flight (waiting up to 5 s for it)."""
+    def stop(self) -> bool:
+        """Stop after the cycle in flight (waiting up to 5 s for it); False
+        when the loop thread is still running (a cycle stuck in a
+        collective), so the caller must not tear the group down."""
         self._stop.set()
-        if self._thread is not None:
-            self._thread.join(timeout=5.0)
-            self._thread = None
+        thread, self._thread = self._thread, None
+        if thread is None:
+            return True
+        thread.join(timeout=5.0)
+        return not thread.is_alive()
