@@ -28,7 +28,18 @@ Phases, each fatal on failure (exit code 1, no result line):
    receiver and a stub apiserver that the script serves on 127.0.0.1, for
    at least 5 cycles at a 1 s interval; every cycle healthy with every
    kernel launched, one POSTed probe payload per cycle, the status routes
-   answering, no node patched, and the stop within 10 s.
+   answering, no node patched, and the stop within 10 s;
+9. the watcher: ``python -m k8s_watcher_tpu_torch production``'s
+   ``WatcherApp`` (unported planes off, GPU backend, 1 s probe interval)
+   against a seeded cluster of 2,048 GPU nodes and 50,000 pods that the
+   script serves on 127.0.0.1 (paged LIST, then 60,000 watch events); what
+   it POSTs must equal a plain fold of the same events under the
+   ``production`` rules, the churn must drain without loss, at least 3
+   in-process probe cycles must run healthy with every kernel launched, the
+   status routes must answer, the stop must take under 10 s and leave a
+   checkpoint of the last resourceVersion and every live pod, and a second
+   app started from that checkpoint must POST a DELETED for each pod deleted
+   while it was down. ``--seed N`` picks another cluster (default 0).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -36,6 +47,7 @@ The last line of standard output is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import http.client
 import json
 import os
@@ -46,6 +58,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 REPO = os.path.dirname(os.path.abspath(__file__))
@@ -138,11 +151,11 @@ def serve(name: str) -> ThreadingHTTPServer:
     return server
 
 
-def http_get(port: int, path: str):
+def http_get(port: int, path: str, token: str = None):
     """(status, body) of one GET to 127.0.0.1:port, JSON decoded where it is JSON."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
     try:
-        conn.request("GET", path)
+        conn.request("GET", path, headers={"Authorization": f"Bearer {token}"} if token else {})
         response = conn.getresponse()
         body = response.read()
         if response.getheader("Content-Type", "").startswith("application/json"):
@@ -163,6 +176,764 @@ def bound(bytes_moved: float, f32_ops: float):
     by_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
     by_ops = 1e3 * f32_ops / F32_FLOPS_PER_S
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+# -- phase 9: the watcher on a seeded GPU cluster --------------------------------
+
+GPU_KEY = "nvidia.com/gpu"
+WATCHED_NAMESPACES = ("default", "production", "monitoring", "kube-system")
+UNWATCHED_NAMESPACE = "batch"
+JOBSET_LABEL = "jobset.sigs.k8s.io/jobset-name"
+REPLICATED_LABEL = "jobset.sigs.k8s.io/replicatedjob-name"
+INDEX_LABEL = "apps.kubernetes.io/pod-index"
+STATUS_TOKEN = "chip-smoke-status-token"
+T0 = "2026-10-01T00:00:00Z"
+CHURN_DRAIN_LIMIT_S = 120.0
+WATCHER_PROBE_CYCLES = 3
+LIST_PAGE = 500
+
+
+def _pod_status(phase: str, ready: bool, restarts: int, host_ip: str, pod_ip: str, image: str) -> dict:
+    flag = "True" if ready else "False"
+    if phase == "Running":
+        state = {"running": {"startedAt": T0}}
+    elif phase == "Failed":
+        state = {"terminated": {"exitCode": 1, "reason": "Error", "startedAt": T0, "finishedAt": T0}}
+    else:
+        state = {"waiting": {"reason": "ContainerCreating"}}
+    return {
+        "phase": phase,
+        "conditions": [{"type": kind, "status": status, "lastTransitionTime": T0} for kind, status in (
+            ("PodScheduled", "True"), ("Initialized", "True"), ("ContainersReady", flag), ("Ready", flag))],
+        "hostIP": host_ip, "podIP": pod_ip, "startTime": T0, "qosClass": "Burstable",
+        "containerStatuses": [
+            {"name": "main", "ready": ready, "restartCount": restarts, "started": phase == "Running",
+             "image": image, "state": state},
+            {"name": "log-agent", "ready": ready, "restartCount": 0, "started": phase == "Running",
+             "image": "registry.example.com/log-agent:0.9.1", "state": state},
+        ],
+    }
+
+
+_encode = json.JSONEncoder(separators=(",", ":")).encode
+
+
+class _PodSpec:
+    """One pod's fixed parts: identity, labels, owner, placement, containers.
+    ``pod()`` renders it at a state as a dict, ``encode()`` as the same JSON
+    bytes with the fixed parts serialized once."""
+
+    __slots__ = ("namespace", "uid", "gpus", "jobset", "metadata", "spec", "ips", "image", "_parts")
+
+    def __init__(self, rng, *, name, namespace, uid, node, node_ip, gpus, labels, owner_kind, owner_name):
+        self.namespace, self.uid, self.gpus = namespace, uid, gpus
+        self.jobset = f"{namespace}/{labels[JOBSET_LABEL]}/{labels[REPLICATED_LABEL]}" if JOBSET_LABEL in labels \
+            else None
+        self.image = "registry.example.com/train:1.4.2" if gpus else "registry.example.com/service:2.7.0"
+        requests = {"cpu": "4", "memory": "16Gi"}
+        limits = {"cpu": "8", "memory": "32Gi"}
+        if gpus:
+            requests[GPU_KEY] = limits[GPU_KEY] = str(gpus)
+        env = [{"name": f"APP_SETTING_{i:02d}", "value": f"{rng.getrandbits(96):024x}"}
+               for i in range(rng.randrange(0, 24))]
+        self.metadata = {
+            "name": name, "generateName": name.rsplit("-", 1)[0] + "-", "namespace": namespace, "uid": uid,
+            "creationTimestamp": T0, "labels": labels,
+            "annotations": {"kubectl.kubernetes.io/default-container": "main", "prometheus.io/scrape": "true"},
+            "ownerReferences": [{"apiVersion": "batch/v1" if owner_kind == "Job" else "apps/v1",
+                                 "kind": owner_kind, "name": owner_name, "uid": f"owner-{owner_name}",
+                                 "controller": True, "blockOwnerDeletion": True}],
+        }
+        self.spec = {
+            "nodeName": node, "serviceAccountName": "default", "restartPolicy": "Never" if gpus else "Always",
+            "schedulerName": "default-scheduler", "priority": 0, "terminationGracePeriodSeconds": 30,
+            "containers": [
+                {"name": "main", "image": self.image, "command": ["/bin/entrypoint"],
+                 "args": ["--config", "/etc/app/config.yaml"], "env": env,
+                 "resources": {"requests": requests, "limits": limits},
+                 "ports": [{"containerPort": 8080, "name": "http", "protocol": "TCP"}],
+                 "volumeMounts": [{"name": "config", "mountPath": "/etc/app"},
+                                  {"name": "kube-api-access", "readOnly": True,
+                                   "mountPath": "/var/run/secrets/kubernetes.io/serviceaccount"}],
+                 "readinessProbe": {"httpGet": {"path": "/healthz", "port": 8080}, "periodSeconds": 10}},
+                {"name": "log-agent", "image": "registry.example.com/log-agent:0.9.1",
+                 "resources": {"requests": {"cpu": "100m", "memory": "128Mi"}},
+                 "volumeMounts": [{"name": "logs", "mountPath": "/var/log/app"}]},
+            ],
+            "tolerations": [{"key": GPU_KEY, "operator": "Exists", "effect": "NoSchedule"}] if gpus else [],
+            "volumes": [{"name": "config", "configMap": {"name": f"{owner_name}-config"}},
+                        {"name": "logs", "emptyDir": {}}],
+        }
+        self.ips = (node_ip, f"10.{rng.randrange(64, 128)}.{rng.randrange(256)}.{rng.randrange(1, 255)}")
+        self._parts = None
+
+    @property
+    def name(self) -> str:
+        return self.metadata["name"]
+
+    def pod(self, rv: int, phase: str, ready: bool, restarts: int) -> dict:
+        return {"apiVersion": "v1", "kind": "Pod", "metadata": {**self.metadata, "resourceVersion": str(rv)},
+                "spec": self.spec, "status": _pod_status(phase, ready, restarts, *self.ips, self.image)}
+
+    def encode(self, rv: int, phase: str, ready: bool, restarts: int) -> bytes:
+        if self._parts is None:
+            meta = _encode(self.metadata).encode()
+            self._parts = (b'{"apiVersion":"v1","kind":"Pod","metadata":' + meta[:-1] + b',"resourceVersion":"',
+                           b'"},"spec":' + _encode(self.spec).encode() + b',"status":')
+        head, middle = self._parts
+        status = _encode(_pod_status(phase, ready, restarts, *self.ips, self.image)).encode()
+        return b"%s%d%s%s}" % (head, rv, middle, status)
+
+
+class GpuCluster:
+    """A seeded GPU cluster: the pods a LIST returns and the churn a WATCH then
+    delivers, as steps ``(type, spec, phase, ready, restarts, rv)`` in
+    resourceVersion order (``initial``, ``churn``).
+
+    ``jobsets`` JobSets of ``workers`` GPU workers each in ``jobset_namespace``
+    (``nvidia.com/gpu: 8``, JobSet name, replicated-job name and pod index
+    labels), listed Pending; the churn takes each to Running, then Ready.
+    ``failures`` JobSets lose one Ready worker: Failed, DELETED, and a
+    replacement ADDED that goes Running and Ready. The rest of the pods are
+    services without GPUs over the four watched namespaces, ``batch_share``
+    of all pods in ``batch`` (which the watcher does not watch; 1% of those
+    request GPUs), and the rest of the churn is MODIFIED status churn
+    (restarts, readiness flips) on pods without GPUs. ``down_deletions`` are
+    GPU workers of healthy JobSets to delete while the watcher is down."""
+
+    def __init__(self, seed: int = 0, *, nodes: int = 2048, pods: int = 50000, jobsets: int = 256,
+                 workers: int = 8, churn: int = 60000, failures: int = 32, batch_share: float = 0.10,
+                 down_deletions: int = 16, jobset_namespace: str = "production"):
+        import random
+
+        rng = random.Random(seed)
+        self.nodes = nodes
+        node_ips = [f"172.16.{i // 250}.{i % 250 + 1}" for i in range(nodes)]
+        state = {}  # uid -> [phase, ready, restarts]
+        specs = []
+
+        def new_pod(name, namespace, gpus, labels, owner_kind, owner_name, phase, ready, node=None):
+            i = rng.randrange(nodes) if node is None else node % nodes
+            spec = _PodSpec(rng, name=name, namespace=namespace, uid=f"uid-{len(state):06d}-{rng.getrandbits(32):08x}",
+                            node=f"gpu-node-{i:04d}", node_ip=node_ips[i], gpus=gpus, labels=labels,
+                            owner_kind=owner_kind, owner_name=owner_name)
+            state[spec.uid] = [phase, ready, 0]
+            return spec
+
+        jobset_workers = {}
+        for j in range(jobsets):
+            js = f"train-{j:03d}"
+            members = [new_pod(f"{js}-workers-0-{w}-{rng.getrandbits(20):05x}", jobset_namespace, 8,
+                               {JOBSET_LABEL: js, REPLICATED_LABEL: "workers", INDEX_LABEL: str(w),
+                                "batch.kubernetes.io/job-name": f"{js}-workers-0"},
+                               "Job", f"{js}-workers-0", "Pending", False, node=j * workers + w)
+                       for w in range(workers)]
+            jobset_workers[members[0].jobset] = members
+            specs.extend(members)
+        n_batch = int(round(batch_share * pods))
+        for i in range(pods - jobsets * workers):
+            if i < n_batch:
+                ns, gpus = UNWATCHED_NAMESPACE, (8 if i % 100 == 0 else 0)
+            else:
+                ns, gpus = WATCHED_NAMESPACES[i % len(WATCHED_NAMESPACES)], 0
+            app = f"svc-{i % 997:03d}"
+            specs.append(new_pod(f"{app}-{rng.getrandbits(40):010x}", ns, gpus,
+                                 {"app": app, "pod-template-hash": "7d4b9c"}, "ReplicaSet", f"{app}-7d4b9c",
+                                 "Running", True))
+        self.initial = [("ADDED", spec, *state[spec.uid], rv) for rv, spec in enumerate(specs, start=1)]
+        self.list_rv = len(specs)
+
+        # per-pod sequences of (spec, type, phase, ready); None = status churn
+        sequences = []
+        self.failed_jobsets = sorted(rng.sample(sorted(jobset_workers), failures))
+        for key, members in jobset_workers.items():
+            fail = rng.randrange(workers) if key in self.failed_jobsets else None
+            for w, spec in enumerate(members):
+                seq = [(spec, "MODIFIED", "Running", False), (spec, "MODIFIED", "Running", True)]
+                if w == fail:
+                    labels = spec.metadata["labels"]
+                    replacement = new_pod(f"{labels[JOBSET_LABEL]}-workers-0-{w}-{rng.getrandbits(20):05x}",
+                                          jobset_namespace, 8, labels, "Job", f"{labels[JOBSET_LABEL]}-workers-0",
+                                          "Pending", False, node=int(spec.spec["nodeName"][-4:]))
+                    seq += [(spec, "MODIFIED", "Failed", False), (spec, "DELETED", "Failed", False),
+                            (replacement, "ADDED", "Pending", False), (replacement, "MODIFIED", "Running", True)]
+                sequences.append(seq)
+        plain = [s for s in specs if not s.gpus]
+        remaining = churn - sum(len(s) for s in sequences)
+        if remaining < 0:
+            raise ValueError(f"churn={churn} is below the {churn - remaining} GPU worker events")
+        per_pod = {}
+        for _ in range(remaining):
+            spec = plain[rng.randrange(len(plain))]
+            per_pod[spec.uid] = (spec, per_pod.get(spec.uid, (spec, 0))[1] + 1)
+        sequences.extend([(spec, "MODIFIED", None, None)] * k for spec, k in per_pod.values())
+        timed = []
+        for n, seq in enumerate(sequences):
+            times = sorted(rng.random() for _ in seq)
+            timed.extend((t, n, step) for t, step in zip(times, seq))
+        timed.sort(key=lambda item: item[:2])
+        self.churn = []
+        for rv, (_, _, (spec, kind, phase, ready)) in enumerate(timed, start=self.list_rv + 1):
+            st = state[spec.uid]
+            if phase is None:  # status churn: a restart or a readiness flip
+                if rng.random() < 0.5:
+                    st[2] += 1
+                else:
+                    st[1] = not st[1]
+            else:
+                st[0], st[1] = phase, ready
+            self.churn.append((kind, spec, *st, rv))
+        self.last_rv = self.list_rv + len(self.churn)
+        healthy = [m for key, members in jobset_workers.items() if key not in self.failed_jobsets for m in members]
+        self.down_deletions = [(s.namespace, s.name, s.uid) for s in rng.sample(healthy, down_deletions)]
+
+    @staticmethod
+    def pods(steps):
+        """The steps as ``(type, pod dict)`` pairs."""
+        return [(kind, spec.pod(rv, phase, ready, restarts)) for kind, spec, phase, ready, restarts, rv in steps]
+
+    @staticmethod
+    def facts(steps):
+        """What the fold reads of each step, as ``facts_of`` reads it of a pod."""
+        return [(kind, spec.namespace, spec.name, spec.uid, spec.gpus, spec.jobset, phase,
+                 (("main", ready, restarts), ("log-agent", ready, 0))) for kind, spec, phase, ready, restarts, _ in steps]
+
+
+def facts_of(kind: str, pod: dict) -> tuple:
+    """``(type, namespace, name, uid, GPUs requested, JobSet slice key or None,
+    phase, container (name, ready, restarts))`` of one watch event's pod."""
+    meta = pod.get("metadata") or {}
+    labels = meta.get("labels") or {}
+    gpus = sum(int((c.get("resources") or {}).get("requests", {}).get(GPU_KEY, 0))
+               for c in (pod.get("spec") or {}).get("containers") or [])
+    jobset = f"{meta.get('namespace')}/{labels[JOBSET_LABEL]}/{labels[REPLICATED_LABEL]}" \
+        if JOBSET_LABEL in labels else None
+    ready = tuple((cs.get("name", ""), bool(cs.get("ready", False)), int(cs.get("restartCount", 0) or 0))
+                  for cs in (pod.get("status") or {}).get("containerStatuses") or [])
+    return (kind, meta.get("namespace", ""), meta.get("name", ""), meta.get("uid", ""), gpus, jobset,
+            (pod.get("status") or {}).get("phase", "Unknown"), ready)
+
+
+def _slice_phase(members: dict, ever_ready: bool, had_members: bool) -> str:
+    """A slice's phase from its members' (phase, ready), with no expected
+    worker count (GPU JobSets carry no topology)."""
+    if not members:
+        return "Terminated" if had_members else "Forming"
+    phases = [phase for phase, _ in members.values()]
+    if any(p in ("Failed", "Unknown") for p in phases):
+        return "Degraded"
+    if all(p == "Succeeded" for p in phases):
+        return "Completed"
+    if all(p == "Running" and ready for p, ready in members.values()):
+        return "Ready"
+    return "Degraded" if ever_ready else "Forming"
+
+
+def fold_production(facts, namespaces=WATCHED_NAMESPACES):
+    """The plain reference of what the watcher notifies under the
+    ``production`` rules, over ``facts`` in watch order: the namespace
+    filter, the GPU resource filter, and the critical gate (DELETED or a
+    terminal phase) on a significant change (first sighting, phase or
+    container-status change, deletion); and each JobSet's slice phase.
+
+    Returns ``(last, transitions)``: the last pod notification per uid as
+    ``(event_type, phase, namespace, name)``, and each slice key's phase
+    transitions as ``(from, to)`` pairs."""
+    last, seen, slices, transitions = {}, {}, {}, {}
+    for kind, ns, name, uid, gpus, jobset, phase, ready in facts:
+        if (namespaces and ns not in namespaces) or not gpus:
+            continue
+        prev = seen.pop(uid, None) if kind == "DELETED" else seen.get(uid)
+        if kind != "DELETED":
+            seen[uid] = (phase, ready)
+        if (kind == "DELETED" or prev != (phase, ready)) and (kind == "DELETED" or phase in ("Failed", "Succeeded")):
+            last[uid] = (kind, phase, ns, name)
+        if jobset is None:
+            continue
+        st = slices.setdefault(jobset, {"members": {}, "phase": "Forming", "ever_ready": False, "had": False})
+        if kind == "DELETED":
+            st["members"].pop(uid, None)
+        else:
+            st["members"][uid] = (phase, bool(ready) and all(r for _, r, _ in ready))
+        st["had"] = st["had"] or bool(st["members"])
+        new = _slice_phase(st["members"], st["ever_ready"], st["had"])
+        st["ever_ready"] = st["ever_ready"] or new == "Ready"
+        if new != st["phase"]:
+            transitions.setdefault(jobset, []).append((st["phase"], new))
+            st["phase"] = new
+    return last, transitions
+
+
+class ClusterStub:
+    """The apiserver side of phase 9: ``GET /version``, the node list, the pod
+    LIST in ``limit`` pages with ``continue`` tokens (each list a snapshot of
+    the objects at its first page), and the pod WATCH: from the LIST's
+    resourceVersion it writes the whole churn as fast as it can, then keeps
+    the stream open with a BOOKMARK a second. A watch below ``gone_below``
+    gets 410 Gone (history compacted)."""
+
+    def __init__(self, cluster: GpuCluster):
+        self.cluster = cluster
+        self.lock = threading.Lock()
+        self.objects = {spec.uid: spec.encode(rv, phase, ready, restarts)
+                        for _, spec, phase, ready, restarts, rv in cluster.initial}
+        self.pod_bytes = sum(len(b) for b in self.objects.values())
+        self.churn = [(kind, spec.uid, spec.encode(rv, phase, ready, restarts))
+                      for kind, spec, phase, ready, restarts, rv in cluster.churn]
+        self.rv = cluster.list_rv
+        self.gone_below = 0
+        self.node_list = json.dumps({"kind": "NodeList", "apiVersion": "v1", "metadata": {"resourceVersion": "1"},
+                                     "items": [{"metadata": {"name": f"gpu-node-{i:04d}"}, "spec": {}}
+                                               for i in range(cluster.nodes)]}).encode()
+        self.snapshots = {}
+        self.list_pages = 0
+        self.churn_t0 = self.churn_t1 = None
+        self.churn_done = threading.Event()
+        self.closing = threading.Event()
+
+    def page(self, params: dict) -> bytes:
+        limit = int(params.get("limit") or 0) or len(self.objects)
+        token = params.get("continue")
+        with self.lock:
+            if token:
+                list_id, offset = (int(x) for x in token.split(":"))
+                items, rv = self.snapshots[list_id]
+            else:
+                list_id, offset = len(self.snapshots), 0
+                items, rv = list(self.objects.values()), self.rv
+                self.snapshots[list_id] = (items, rv)
+            self.list_pages += 1
+        end = offset + limit
+        more = f',"continue":"{list_id}:{end}"' if end < len(items) else ""
+        if not more:
+            self.snapshots.pop(list_id, None)
+        return (f'{{"kind":"PodList","apiVersion":"v1","metadata":{{"resourceVersion":"{rv}"{more}}},"items":['
+                .encode() + b",".join(items[offset:end]) + b"]}")
+
+    def watch(self, handler, params: dict) -> None:
+        rv = int(params.get("resourceVersion") or 0)
+        if rv < self.gone_below:
+            handler.answer(410, {"kind": "Status", "code": 410, "message": "too old resource version"})
+            return
+        handler.send_response(200)
+        handler.send_header("Content-Type", "application/json")
+        handler.send_header("Transfer-Encoding", "chunked")
+        handler.end_headers()
+        out = handler.wfile
+
+        def write(data: bytes) -> None:
+            out.write(b"%x\r\n%s\r\n" % (len(data), data))
+
+        deadline = time.monotonic() + int(params.get("timeoutSeconds") or 300)
+        try:
+            if rv == self.cluster.list_rv and self.churn_t0 is None:
+                self.churn_t0 = time.monotonic()
+                for i in range(0, len(self.churn), 256):
+                    block = self.churn[i:i + 256]
+                    write(b"".join(b'{"type":"%s","object":%s}\n' % (kind.encode(), body) for kind, _, body in block))
+                    with self.lock:
+                        for kind, uid, body in block:
+                            if kind == "DELETED":
+                                self.objects.pop(uid, None)
+                            else:
+                                self.objects[uid] = body
+                        self.rv = self.cluster.last_rv if i + 256 >= len(self.churn) else self.rv + len(block)
+                self.churn_t1 = time.monotonic()
+                self.churn_done.set()
+            while not self.closing.wait(1.0) and time.monotonic() < deadline:
+                write(b'{"type":"BOOKMARK","object":{"kind":"Pod","metadata":{"resourceVersion":"%d"}}}\n' % self.rv)
+            out.write(b"0\r\n\r\n")
+        except (BrokenPipeError, ConnectionResetError):
+            pass  # the watcher closed the stream (stop or reconnect)
+
+    def delete_while_down(self, uids) -> None:
+        """Delete pods with no watch to see it, and compact the history past
+        them: a watch resuming from before gets 410 Gone."""
+        with self.lock:
+            for uid in uids:
+                self.objects.pop(uid, None)
+            self.rv += len(uids)
+            self.gone_below = self.rv
+
+
+class _StubHandler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    disable_nagle_algorithm = True
+    stub: ClusterStub = None
+
+    def log_message(self, *a):
+        pass
+
+    def answer(self, status: int, body) -> None:
+        data = body if isinstance(body, bytes) else json.dumps(body).encode()
+        self.send_response(status)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def do_GET(self):  # noqa: N802
+        path, _, query = self.path.partition("?")
+        params = dict(urllib.parse.parse_qsl(query))
+        if path == "/version":
+            self.answer(200, {"major": "1", "minor": "31", "gitVersion": "v1.31.0"})
+        elif path == "/api/v1/nodes":
+            self.answer(200, self.stub.node_list)
+        elif path == "/api/v1/pods" and params.get("watch") == "true":
+            self.stub.watch(self, params)
+        elif path == "/api/v1/pods":
+            self.answer(200, self.stub.page(params))
+        else:
+            self.answer(404, {"kind": "Status", "code": 404})
+
+
+class _ReceiverHandler(BaseHTTPRequestHandler):
+    """The cluster API: every payload, per item or batched, is recorded as
+    ``(monotonic time, payload)``."""
+
+    protocol_version = "HTTP/1.1"
+    disable_nagle_algorithm = True
+
+    def log_message(self, *a):
+        pass
+
+    def do_POST(self):  # noqa: N802
+        body = json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0) or 0)))
+        now = time.monotonic()
+        server = self.server
+        if self.path.endswith("/update_batch"):
+            updates = body["updates"]
+            with server.lock:
+                server.payloads.extend((now, p) for p in updates)
+                server.batch_posts += 1
+            data = json.dumps({"results": [True] * len(updates)}).encode()
+        else:
+            with server.lock:
+                server.payloads.append((now, body))
+                server.item_posts += 1
+            data = b""
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def do_GET(self):  # noqa: N802
+        self.send_response(200 if self.path == "/health" else 404)
+        self.send_header("Content-Length", "0")
+        self.end_headers()
+
+
+class _QuietServer(ThreadingHTTPServer):
+    """A client dropping its connection (the watcher's stop shuts its watch
+    socket down) ends the conversation; it is no server error."""
+
+    def handle_error(self, request, client_address):
+        if not isinstance(sys.exc_info()[1], (BrokenPipeError, ConnectionResetError, TimeoutError)):
+            super().handle_error(request, client_address)
+
+
+def serve_handler(handler: type, **attrs) -> ThreadingHTTPServer:
+    server = _QuietServer(("127.0.0.1", 0), handler)
+    server.daemon_threads = True
+    for key, value in attrs.items():
+        setattr(server, key, value)
+    threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.1}, daemon=True).start()
+    return server
+
+
+class GcPauses:
+    """The interpreter's cyclic collections while it is open, as ``(end,
+    seconds)`` on the monotonic clock: every thread, the probe's included,
+    stands still while one runs."""
+
+    def __init__(self):
+        self.pauses = []
+        self._start = None
+        gc.callbacks.append(self._hook)
+
+    def _hook(self, phase: str, info: dict) -> None:
+        now = time.monotonic()
+        if phase == "start":
+            self._start = now
+        elif self._start is not None:
+            self.pauses.append((now, now - self._start))
+            self._start = None
+
+    def between(self, t0: float, t1: float) -> dict:
+        inside = [s for end, s in self.pauses if t0 <= end < t1]
+        return {"collections": len(inside), "seconds": sum(inside), "longest_s": max(inside, default=0.0)}
+
+    def close(self) -> None:
+        gc.callbacks.remove(self._hook)
+
+
+def watcher_config(config_dir: str, receiver_url: str, apiserver_url: str, workdir: str, *, probe_interval: float):
+    """The ``production`` environment as the port's ``load_app_config`` loads
+    it, with the planes the port does not carry switched off, the GPU
+    backend, and the watcher pointed at local servers and a temporary
+    checkpoint."""
+    from k8s_watcher_tpu_torch.config import load_app_config
+
+    kubeconfig = os.path.join(workdir, "kubeconfig")
+    with open(kubeconfig, "w") as fh:
+        json.dump({
+            "apiVersion": "v1", "kind": "Config", "current-context": "stub",
+            "clusters": [{"name": "stub", "cluster": {"server": apiserver_url}}],
+            "contexts": [{"name": "stub", "context": {"cluster": "stub", "user": "stub"}}],
+            "users": [{"name": "stub", "user": {"token": "stub-token"}}],
+        }, fh)
+    config = load_app_config("production", config_dir, env={
+        "CLUSTERAPI_BASE_URL": receiver_url, "PROD_CLUSTERAPI_API_KEY": API_KEY,
+        "WATCHER_STATUS_TOKEN": STATUS_TOKEN,
+        "WATCHER_CHECKPOINT_PATH": os.path.join(workdir, "checkpoint.json"),
+    })
+    off = {name: dataclasses.replace(getattr(config, name), enabled=False)
+           for name in ("serve", "history", "analytics", "health", "slo")}
+    return dataclasses.replace(
+        config, **off,
+        watcher=dataclasses.replace(
+            config.watcher, status_port=free_port(),
+            leader_election=dataclasses.replace(config.watcher.leader_election, enabled=False)),
+        tpu=dataclasses.replace(config.tpu, backend="gpu", resource_key=GPU_KEY, node_watch_enabled=False,
+                                probe_interval_seconds=probe_interval),
+        kubernetes=dataclasses.replace(config.kubernetes, use_incluster_config=False, config_file=kubeconfig),
+    )
+
+
+def wait_until(predicate, timeout_s: float, poll_s: float = 0.05) -> bool:
+    deadline = time.monotonic() + timeout_s
+    while not predicate():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(poll_s)
+    return True
+
+
+def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: int, **sizes) -> dict:
+    """Phase 9: ``python -m k8s_watcher_tpu_torch production``'s ``WatcherApp``
+    on the card against a seeded cluster of 2,048 GPU nodes and 50,000 pods
+    served by ``ClusterStub``, through 60,000 watch events of churn, then a
+    restart from its checkpoint (``sizes`` override ``GpuCluster``'s). Every
+    check is fatal. Returns the kernel launches of the watcher's run."""
+    from k8s_watcher_tpu_torch.app import WatcherApp
+    from k8s_watcher_tpu_torch.kernels import build
+    from k8s_watcher_tpu_torch.state.checkpoint import CheckpointStore
+
+    t_phase = time.monotonic()
+    cluster = GpuCluster(seed, **sizes)
+    stub = ClusterStub(cluster)
+    t_built = time.monotonic()
+    last, transitions = fold_production(GpuCluster.facts(cluster.initial) + GpuCluster.facts(cluster.churn))
+    # the stub stands in for the apiserver, another process in a real
+    # cluster: its ~1.2 million objects would otherwise sit in every full
+    # cyclic collection the watcher's LIST triggers (~1 s each on the card's
+    # host), so they are moved out of the collector's reach
+    gc.collect()
+    gc.freeze()
+    apiserver = serve_handler(type("StubApi", (_StubHandler,), {"stub": stub}))
+    receivers = [serve_handler(_ReceiverHandler, lock=threading.Lock(), payloads=[], item_posts=0, batch_posts=0)
+                 for _ in range(2)]
+    workdir = tempfile.TemporaryDirectory()
+    api_url = f"http://127.0.0.1:{apiserver.server_address[1]}"
+    configs = [watcher_config(os.path.join(REPO, "config"), f"http://127.0.0.1:{r.server_address[1]}", api_url,
+                              workdir.name, probe_interval=1.0) for r in receivers]
+    print("watcher cluster: " + json.dumps({
+        "seed": seed, "nodes": cluster.nodes, "pods": len(cluster.initial), "churn_events": len(cluster.churn),
+        "jobsets": len(transitions), "failed_jobsets": len(cluster.failed_jobsets),
+        "list_bytes": stub.pod_bytes, "build_s": t_built - t_phase,
+    }))
+
+    def run_app(config):
+        app = WatcherApp(config, device=dev)
+        errors = []
+
+        def run():
+            try:
+                app.run()
+            except BaseException as exc:  # noqa: BLE001 — reported by the caller, fatal
+                errors.append(exc)
+
+        runner = threading.Thread(target=run, name="watcher", daemon=True)
+        return app, runner, errors
+
+    # the first watcher: LIST, churn, probe cycles, status routes, stop
+    app, runner, errors = run_app(configs[0])
+    cycles = []
+    agent = app._probe_agent
+    deliver = agent.sink
+
+    def count_cycle(notification):
+        # on the agent thread, once per cycle: the launches since the last one
+        counts = build.launch_counts()
+        since = {k: counts[k] - sum(c["launches"][k] for c in cycles) for k in counts}
+        payload = notification.payload
+        cycles.append({"end": time.monotonic(), "healthy": payload["healthy"], "duration_ms": payload["duration_ms"],
+                       "launches": since, "trend_alerts": payload["trend_alerts"],
+                       "mxu_tflops": (payload.get("mxu") or {}).get("tflops_median"),
+                       "hbm_read_gbps": (payload.get("hbm") or {}).get("read_gbps"),
+                       "hbm_write_gbps": (payload.get("hbm_write") or {}).get("write_gbps")})
+        deliver(notification)
+
+    agent.sink = count_cycle
+    source = app.ingest.sources[0]
+    tracked_objects = {"scanned": len(gc.get_objects()), "frozen": gc.get_freeze_count()}
+    pauses = GcPauses()
+    build.reset_launch_counts()
+    t_start = time.monotonic()
+    runner.start()
+    if not wait_until(lambda: stub.churn_t0 is not None or errors or not runner.is_alive(), 120):
+        fail("the watcher's LIST did not reach the watch within 120 s")
+    list_s, list_pages = stub.churn_t0 - t_start if stub.churn_t0 else None, stub.list_pages
+    m = app.metrics
+    gpu_churn = sum(1 for kind, spec, *_ in cluster.churn if spec.gpus)
+    drained = wait_until(
+        lambda: errors or (stub.churn_done.is_set() and source.resource_version == str(cluster.last_rv)
+                           and m.counter("events_received").value >= len(cluster.initial) + gpu_churn
+                           and app.ingest.queue.depth() == 0),
+        CHURN_DRAIN_LIMIT_S)
+    drained = drained and app.dispatcher.drain(max(1.0, CHURN_DRAIN_LIMIT_S - (time.monotonic() - stub.churn_t0)))
+    t_drained = time.monotonic()
+    if errors:
+        fail(f"the watcher raised: {errors[0]!r}")
+    if not drained:
+        fail(f"the churn did not drain within {CHURN_DRAIN_LIMIT_S} s: rv {source.resource_version} of "
+             f"{cluster.last_rv}, {m.counter('events_received').value} events through the pipeline")
+    # watch frames handled: parsed ones reach the pipeline, the prefiltered
+    # (no GPU key) are counted by the source
+    churn_events = m.counter("events_received").value - len(cluster.initial) + m.counter("events_prefiltered").value
+    churn_s = t_drained - stub.churn_t0
+    if not wait_until(lambda: sum(1 for c in cycles if c["end"] > stub.churn_t0) >= WATCHER_PROBE_CYCLES, 60):
+        fail(f"{sum(1 for c in cycles if c['end'] > stub.churn_t0)} probe cycles ran during and after the churn "
+             f"in 60 s, want {WATCHER_PROBE_CYCLES}")
+    port = app.config.watcher.status_port
+    routes = {r: http_get(port, r, STATUS_TOKEN) for r in ("/healthz", "/debug/slices", "/metrics")}
+    t_stop = time.monotonic()
+    app.stop()
+    runner.join(60)
+    stop_s = time.monotonic() - t_stop
+    launches = build.launch_counts()
+    pauses.close()
+    if runner.is_alive() or stop_s > STOP_LIMIT_S:
+        fail(f"the watcher did not stop within {STOP_LIMIT_S} s: {stop_s:.2f} s")
+    if errors:
+        fail(f"the watcher raised: {errors[0]!r}")
+
+    with receivers[0].lock:
+        received = [p for _, p in receivers[0].payloads]
+    during = [c for c in cycles if c["end"] > stub.churn_t0]
+    latency = m.histogram("event_to_notify_latency").summary()
+    print("watcher run: " + json.dumps({
+        "list_s": list_s, "list_pages": list_pages, "churn_s": churn_s, "churn_watch_events": churn_events,
+        "pipeline_events_per_s": churn_events / churn_s if churn_s > 0 else None,
+        "event_to_notify_latency": latency,
+        "item_posts": receivers[0].item_posts, "batch_posts": receivers[0].batch_posts,
+        "payloads": len(received),
+        "dispatch": {k: m.counter(k).value for k in ("dispatch_sent", "dispatch_batches", "dispatch_batch_items",
+                                                     "dispatch_coalesced", "dispatch_failed",
+                                                     "dispatch_dropped_overflow")},
+        "probe_cycles_during_and_after_churn_ms": [c["duration_ms"] for c in during],
+        "probe_cycles": [{**{k: v for k, v in c.items() if k != "end"},
+                          "ended_s_after_churn_start": c["end"] - stub.churn_t0} for c in cycles],
+        "bare_loop_cycles_ms": bare_loop_ms,
+        # cyclic collections in the LIST, the churn, and from the drain to
+        # the stop
+        "gc_tracked_objects": tracked_objects,
+        "gc_pauses": {"list": pauses.between(t_start, stub.churn_t0), "churn": pauses.between(stub.churn_t0, t_drained),
+                      "after": pauses.between(t_drained, t_stop)},
+        "stop_s": stop_s, "launches": launches, "device": name, "power_limit": power_limit,
+    }))
+
+    # 1. notifications against the plain fold
+    pod_last, slice_seen, probes = {}, {}, 0
+    for payload in received:
+        kind = payload.get("event_type")
+        if kind == "TPU_PROBE":
+            probes += 1
+        elif kind == "SLICE_PHASE_CHANGE":
+            slice_seen.setdefault(payload["slice"], []).append(
+                (payload["phase_transition"]["from"], payload["phase_transition"]["to"]))
+        elif kind in ("ADDED", "MODIFIED", "DELETED"):
+            pod_last[payload["uid"]] = (kind, (payload.get("status") or {}).get("phase"), payload.get("namespace"),
+                                        payload.get("name"))
+    gpu_uids = {spec.uid for _, spec, *_ in cluster.initial + cluster.churn if spec.gpus}
+    strays = [v for uid, v in pod_last.items() if uid not in gpu_uids or v[2] not in WATCHED_NAMESPACES]
+    if strays:
+        fail(f"payloads name pods the watcher must drop (no GPU or unwatched namespace): {strays[:5]}")
+    if pod_last != last:
+        wrong = sorted(set(pod_last.items()) ^ set(last.items()))[:6]
+        fail(f"last pod payloads differ from the fold ({len(pod_last)} vs {len(last)}): {wrong}")
+    degraded_seen = sorted(k for k, t in slice_seen.items() if any(to == "Degraded" for _, to in t))
+    if degraded_seen != cluster.failed_jobsets or sorted(slice_seen) != sorted(transitions):
+        fail(f"slice notifications: Degraded {degraded_seen} for the failed {cluster.failed_jobsets}; "
+             f"{len(slice_seen)} slices named of {len(transitions)}")
+    final_seen = {k: t[-1][1] for k, t in slice_seen.items()}
+    if final_seen != {k: t[-1][1] for k, t in transitions.items()}:
+        fail("the last slice notification per JobSet differs from the fold's last phase")
+    # 2. drained without loss
+    failed, overflow = m.counter("dispatch_failed").value, m.counter("dispatch_dropped_overflow").value
+    if failed or overflow:
+        fail(f"dispatch_failed {failed}, dispatch_dropped_overflow {overflow}")
+    # 3. the probe through the churn
+    for n, cycle in enumerate(cycles):
+        want = {"read_sweep": 5, "fill": 5, "blocksums": 1}
+        if not cycle["healthy"] or cycle["launches"] != want:
+            fail(f"watcher probe cycle {n}: healthy={cycle['healthy']}, launches {cycle['launches']} (want {want})")
+    if probes != len(cycles):
+        fail(f"{probes} TPU_PROBE payloads for {len(cycles)} probe cycles")
+    # 4. the status routes
+    status, health = routes["/healthz"]
+    if status != 200 or health.get("alive") is not True:
+        fail(f"/healthz: {status} {health}")
+    status, slices_body = routes["/debug/slices"]
+    if status != 200 or len(slices_body["slices"]) != len(transitions):
+        fail(f"/debug/slices: {status}, {len(slices_body.get('slices', {}))} slices of {len(transitions)}")
+    status, metrics_body = routes["/metrics"]
+    wanted = ("events_received", "notifications_enqueued", "slice_notifications_enqueued", "dispatch_sent",
+              "dispatch_enqueued", "event_to_notify_latency")
+    if status != 200 or any(k not in metrics_body for k in wanted):
+        fail(f"/metrics: {status}, missing {[k for k in wanted if k not in metrics_body]}")
+    # 5. a durable stop
+    checkpoint = CheckpointStore(configs[0].state.checkpoint_path)
+    checkpoint.attach_journaled_map("known_pods")
+    checkpoint.attach_journaled_map("phases")
+    known = set(checkpoint.get("known_pods") or {})
+    with stub.lock:
+        live = set(stub.objects)
+    if checkpoint.resource_version() != str(cluster.last_rv) or known != live:
+        fail(f"checkpoint: rv {checkpoint.resource_version()} (stub {cluster.last_rv}), known_pods "
+             f"{len(known)} vs {len(live)} live ({len(known ^ live)} differ)")
+
+    # 6. deletions while down, then a restart from the checkpoint
+    stub.delete_while_down([uid for _, _, uid in cluster.down_deletions])
+    app2, runner2, errors2 = run_app(configs[1])
+    t_restart = time.monotonic()
+    runner2.start()
+    gone = {uid for _, _, uid in cluster.down_deletions}
+
+    def tombstones():
+        with receivers[1].lock:
+            return {p["uid"] for _, p in receivers[1].payloads if p.get("event_type") == "DELETED"}
+
+    restarted = wait_until(lambda: errors2 or tombstones() >= gone, 120)
+    restart_s = time.monotonic() - t_restart
+    app2.stop()
+    runner2.join(60)
+    stub.closing.set()
+    for server in (apiserver, *receivers):
+        server.shutdown()
+        server.server_close()
+    workdir.cleanup()
+    gc.unfreeze()
+    if errors2 or runner2.is_alive():
+        fail(f"the restarted watcher: errors {errors2}, still running {runner2.is_alive()}")
+    if not restarted or tombstones() != gone:
+        fail(f"the restart POSTed DELETED for {len(tombstones() & gone)} of the {len(gone)} pods deleted while "
+             f"down (and {len(tombstones() - gone)} others)")
+    print("watcher restart: " + json.dumps({
+        "deleted_while_down": len(gone), "synthesized_deleted": len(tombstones()), "restart_to_last_deleted_s":
+        restart_s, "phase_s": time.monotonic() - t_phase, "device": name, "power_limit": power_limit,
+    }))
+    return launches
 
 
 def main() -> int:
@@ -522,6 +1293,13 @@ def main() -> int:
         "deployment_loop_cycle_duration_ms_median": statistics.median(durations),
         "stop_s": stop_s, "device": name, "power_limit": power_limit,
     }))
+
+    # 9. the watcher on the card: list+watch, pipeline, slices, notify, probe
+    seed = int(sys.argv[sys.argv.index("--seed") + 1]) if "--seed" in sys.argv else 0
+    watcher_launches = watcher_phase(dev, name, power_limit, [c["duration_ms"] for c in cycles], seed)
+    for kernel in kernels:
+        if watcher_launches[kernel["name"]] <= 0:
+            fail(f"kernel {kernel['name']} was not launched by the watcher's run")
 
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()

@@ -1,0 +1,426 @@
+"""Application wiring: config -> source -> pipeline -> dispatcher (the JAX
+package's ``app.py``).
+
+``WatcherApp.run()`` lists and watches the pods through the sharded ingest,
+runs each batch through the event pipeline (namespace filter, resource
+filter, critical gate, phase tracker, slice tracker, payload extraction),
+hands the notifications to the keyed egress lanes, checkpoints the journaled
+state, serves the status routes, and runs the in-process probe agent on this
+rank's GPU when ``tpu.probe.enabled`` is set.
+
+Planes the port does not carry yet are refused, never skipped: a config that
+enables one makes the constructor raise ``ConfigError`` naming the key.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+from typing import Any, Callable, Optional, Tuple
+
+from k8s_watcher_tpu_torch.config import AppConfig, ConfigError
+from k8s_watcher_tpu_torch.metrics import MetricsRegistry
+from k8s_watcher_tpu_torch.notify.client import ClusterApiClient
+from k8s_watcher_tpu_torch.notify.dispatcher import Dispatcher, build_notifier
+from k8s_watcher_tpu_torch.pipeline.filters import CriticalEventGate, NamespaceFilter, TpuResourceFilter
+from k8s_watcher_tpu_torch.pipeline.phase import PhaseTracker
+from k8s_watcher_tpu_torch.pipeline.pipeline import EventPipeline
+from k8s_watcher_tpu_torch.slices.tracker import SliceTracker
+from k8s_watcher_tpu_torch.state.checkpoint import CheckpointStore
+from k8s_watcher_tpu_torch.status import Liveness, StatusServer
+from k8s_watcher_tpu_torch.watch.sharded import ShardedWatchSource
+from k8s_watcher_tpu_torch.watch.source import WatchSource
+
+logger = logging.getLogger(__name__)
+
+#: (config key, whether the config enables it) for every plane of the JAX
+#: package's WatcherApp that the port does not carry yet
+UNPORTED_PLANES: Tuple[Tuple[str, Callable[[AppConfig], bool]], ...] = (
+    ("serve.enabled", lambda c: c.serve.enabled),
+    ("history.enabled", lambda c: c.history.enabled),
+    ("federation.enabled", lambda c: c.federation.enabled),
+    ("relay.enabled", lambda c: c.relay.enabled),
+    ("analytics.enabled", lambda c: c.analytics.enabled),
+    ("health.enabled", lambda c: c.health.enabled),
+    ("slo.enabled", lambda c: c.slo.enabled),
+    ("watcher.leader_election.enabled", lambda c: c.watcher.leader_election.enabled),
+    ("tpu.node_watch.enabled", lambda c: c.tpu.node_watch_enabled),
+    ("ingest.processes", lambda c: c.ingest.processes > 0),
+)
+
+
+def refuse_unported_planes(config: AppConfig) -> None:
+    """Raise ``ConfigError`` naming the first enabled plane the port lacks."""
+    for key, enabled in UNPORTED_PLANES:
+        if enabled(config):
+            raise ConfigError(
+                f"config key '{key}': this plane is not yet ported to k8s_watcher_tpu_torch "
+                f"(ROADMAP.md, section A); switch it off to run the port's watcher"
+            )
+
+
+def build_source(
+    config: AppConfig,
+    checkpoint: Optional[CheckpointStore] = None,
+    heartbeat=None,
+    metrics: Optional[MetricsRegistry] = None,
+    tracer=None,  # trace.Tracer: head-samples at the shard pumps
+) -> WatchSource:
+    """The sharded watch ingest for this environment: always a
+    ``ShardedWatchSource`` (``ingest.shards: 1`` is one stream through the
+    same queue and batch drain). ``kubernetes.use_mock`` replays an
+    in-process fake pod lifecycle instead of watching a cluster."""
+    ingest = config.ingest
+    if config.kubernetes.use_mock:
+        from k8s_watcher_tpu_torch.watch.fake import pod_lifecycle, sharded_fake_sources
+
+        logger.info(
+            "use_mock=true: replaying an in-process fake pod lifecycle over %d shard stream(s)",
+            ingest.shards,
+        )
+        return ShardedWatchSource(
+            sharded_fake_sources(
+                pod_lifecycle("mock-tpu-pod", "default", phases=("Pending", "Running"), tpu_chips=4),
+                ingest.shards,
+                hold_open=True,
+            ),
+            batch_max=ingest.batch_max,
+            queue_capacity=ingest.queue_capacity,
+            metrics=metrics,
+            tracer=tracer,
+        )
+
+    from k8s_watcher_tpu_torch.k8s.client import K8sClient
+    from k8s_watcher_tpu_torch.k8s.kubeconfig import load_connection
+    from k8s_watcher_tpu_torch.k8s.watch import KubernetesWatchSource
+    from k8s_watcher_tpu_torch.native.scanner import make_scanner
+    from k8s_watcher_tpu_torch.watch.sharded import ShardCheckpointView
+
+    connection = load_connection(
+        use_incluster=config.kubernetes.use_incluster_config,
+        config_file=config.kubernetes.config_file,
+        verify_tls=config.kubernetes.verify_tls,
+    )
+    first_client = K8sClient(connection, request_timeout=config.kubernetes.request_timeout)
+    logger.info("Successfully connected to Kubernetes API version: %s", first_client.get_api_version())
+
+    shards = ingest.shards
+    prefilter_mode = ingest.resolved_prefilter(config.tpu.prefilter)
+    if prefilter_mode != "off":
+        logger.info("Watch-frame prefilter enabled (%s, mode=%s)", config.tpu.resource_key, prefilter_mode)
+    sources = []
+    for shard in range(shards):
+        shard_checkpoint = checkpoint
+        if checkpoint is not None and shards > 1:
+            shard_checkpoint = ShardCheckpointView(checkpoint, shard, shards)
+        sources.append(KubernetesWatchSource(
+            # one client per shard: a client carries at most one live watch
+            first_client if shard == 0 else K8sClient(
+                connection, request_timeout=config.kubernetes.request_timeout
+            ),
+            label_selector=config.watcher.label_selector,
+            retry=config.watcher.retry,
+            watch_timeout_seconds=config.kubernetes.watch_timeout_seconds,
+            checkpoint=shard_checkpoint,
+            heartbeat=heartbeat,
+            # one scanner per shard stream; uid extraction (the pre-parse
+            # foreign-shard skip) only matters with more than one shard
+            scanner=make_scanner(config.tpu.resource_key, mode=prefilter_mode, extract_uid=shards > 1),
+            metrics=metrics,
+            list_page_size=config.watcher.list_page_size,
+            shard=shard,
+            shards=shards,
+        ))
+    if shards > 1:
+        logger.info("Sharded ingest: %d watch streams (uid-hash partition)", shards)
+    return ShardedWatchSource(
+        sources,
+        batch_max=ingest.batch_max,
+        queue_capacity=ingest.queue_capacity,
+        metrics=metrics,
+        tracer=tracer,
+    )
+
+
+class WatcherApp:
+    def __init__(
+        self,
+        config: AppConfig,
+        *,
+        source: Optional[WatchSource] = None,
+        notifier: Optional[ClusterApiClient] = None,
+        metrics: Optional[MetricsRegistry] = None,
+        device: Any = None,
+        expected_platform: Optional[str] = "auto",
+    ):
+        """``device``/``expected_platform`` go to the in-process probe agent:
+        by default it runs on this rank's GPU and raises here when there is
+        none; ``device="cpu"`` runs it on the CPU (held to the ``cpu``
+        platform when ``expected_platform="cpu"``)."""
+        refuse_unported_planes(config)
+        self.config = config
+        self.metrics = metrics or MetricsRegistry()
+        self.checkpoint = (
+            CheckpointStore(
+                config.state.checkpoint_path,
+                interval_seconds=config.state.checkpoint_interval_seconds,
+                metrics=self.metrics,
+            )
+            if config.state.checkpoint_path
+            else None
+        )
+        if self.checkpoint is not None:
+            # known_pods and phases grow with the tracked pods while their
+            # churn per window is small: journal both, so a steady-state
+            # flush costs O(churn), not O(cluster)
+            self.checkpoint.attach_journaled_map("known_pods")
+            self.checkpoint.attach_journaled_map("phases")
+        self.notifier = notifier or build_notifier(config)
+        self.liveness = Liveness(config.watcher.liveness_stale_seconds)
+        self.audit = None
+        if config.watcher.audit_ring_size > 0:
+            from k8s_watcher_tpu_torch.audit import AuditRing
+
+            self.audit = AuditRing(config.watcher.audit_ring_size)
+        # one Tracer shared by every stage: the shard pumps head-sample, the
+        # pipeline and dispatcher stamp spans and close journeys
+        self.tracer = None
+        if config.trace.enabled:
+            from k8s_watcher_tpu_torch.trace import Tracer
+
+            self.tracer = Tracer(
+                sample_rate=config.trace.sample_rate,
+                ring_size=config.trace.ring_size,
+                metrics=self.metrics,
+            )
+        self.status_server: Optional[StatusServer] = None
+        c = config.clusterapi
+        self.dispatcher = Dispatcher(
+            self.notifier.update_pod_status,
+            capacity=c.queue_capacity,
+            # egress fan-out scales with the ingest fan-in unless pinned
+            workers=c.resolved_workers(config.ingest.shards),
+            coalesce=c.coalesce,
+            coalesce_watermark=c.coalesce_watermark,
+            metrics=self.metrics,
+            # bounds shutdown: when stop()'s drain window expires, cut
+            # in-flight sends instead of waiting out attempts x timeout
+            abort=getattr(self.notifier, "abort", None),
+            # micro-batching under backlog; a receiver without the batch
+            # endpoint falls back per item
+            send_batch=getattr(self.notifier, "update_pod_statuses", None) if c.batch_max > 1 else None,
+            batch_max=c.batch_max,
+            tracer=self.tracer,
+            audit=self.audit,
+        )
+        self.source = source or build_source(
+            config, self.checkpoint, self.liveness.beat, self.metrics, self.tracer
+        )
+        # every source runs behind the sharded-ingest machinery: a plain
+        # source is one shard stream, not a separate code path
+        self.ingest = (
+            self.source
+            if isinstance(self.source, ShardedWatchSource)
+            else ShardedWatchSource(
+                [self.source],
+                batch_max=config.ingest.batch_max,
+                queue_capacity=config.ingest.queue_capacity,
+                metrics=self.metrics,
+                tracer=self.tracer,
+            )
+        )
+        if self.tracer is not None and self.ingest.tracer is None:
+            self.ingest.tracer = self.tracer
+        self.slice_tracker = SliceTracker(
+            config.environment,
+            resource_key=config.tpu.resource_key,
+            topology_label=config.tpu.topology_label,
+            accelerator_label=config.tpu.accelerator_label,
+        )
+        self.phase_tracker = PhaseTracker()
+        if self.checkpoint is not None:
+            self.phase_tracker.restore(self.checkpoint.get("phases", {}) or {})
+            self.slice_tracker.restore(self.checkpoint.get("slices", {}) or {})
+        self.pipeline = EventPipeline(
+            environment=config.environment,
+            sink=self.dispatcher.submit,
+            namespace_filter=NamespaceFilter(config.watcher.namespaces),
+            resource_filter=TpuResourceFilter(config.tpu.resource_key),
+            critical_gate=CriticalEventGate(config.environment, config.watcher.critical_events_only),
+            phase_tracker=self.phase_tracker,
+            slice_tracker=self.slice_tracker,
+            metrics=self.metrics,
+            audit=self.audit,
+            tracer=self.tracer,
+            resource_key=config.tpu.resource_key,
+            topology_label=config.tpu.topology_label,
+            accelerator_label=config.tpu.accelerator_label,
+        )
+        self._stop = threading.Event()
+        self.remediation = None  # remediate.ProbeRemediationPolicy when armed
+        self._probe_agent = None
+        self._owns_process_group = False
+        if config.tpu.probe_enabled:
+            import torch.distributed as dist
+
+            from k8s_watcher_tpu_torch.probe.agent import ProbeAgent
+
+            # raises here, before anything runs, when CUDA is asked for
+            # (the default) and the machine has none
+            self._probe_agent = ProbeAgent(
+                config.tpu,
+                environment=config.environment,
+                sink=self.dispatcher.submit,
+                metrics=self.metrics,
+                device=device,
+                expected_platform=expected_platform,
+            )
+            # the agent's first cycle starts a one-rank group unless a
+            # torchrun group exists; shutdown ends only the group it made
+            self._owns_process_group = not dist.is_initialized()
+
+    def run(self) -> None:
+        """Blocking steady-state loop, until ``stop()`` or the ingest ends."""
+        self.dispatcher.start()
+        if self.config.watcher.status_port:
+            agent = self._probe_agent
+            trend = agent.trend.snapshot if agent is not None and agent.trend is not None else None
+            remediation_state = (
+                # answers "configured but not armed" until the policy arms
+                (lambda: self.remediation.snapshot() if self.remediation is not None else None)
+                if self.config.tpu.remediation_enabled
+                else None
+            )
+            stall_after = self.config.clusterapi.egress_stall_seconds
+            self.status_server = StatusServer(
+                self.metrics,
+                self.liveness,
+                port=self.config.watcher.status_port,
+                audit=self.audit,
+                trace=self.tracer.ring if self.tracer is not None else None,
+                # /healthz covers the egress side too: all workers dead, or a
+                # wedged lane past the stall threshold, turns it 503
+                egress=lambda: self.dispatcher.egress_health(stall_after),
+                slices=self.slice_tracker.debug_snapshot,
+                checkpoint=self.checkpoint.stats if self.checkpoint is not None else None,
+                trend=trend,
+                remediation=remediation_state,
+                probes=agent.recent_cycles if agent is not None else None,
+                auth_token=self.config.watcher.status_auth_token,
+            ).start()
+            routes = "/metrics, /healthz, /debug/slices" + (
+                ", /debug/events" if self.audit is not None else ""
+            ) + (", /debug/trace" if self.tracer is not None else "") + (
+                ", /debug/trend" if trend is not None else ""
+            ) + (", /debug/probes" if agent is not None else "") + (
+                ", /debug/remediation" if remediation_state is not None else ""
+            ) + (", /debug/checkpoint" if self.checkpoint is not None else "")
+            logger.info("Status endpoint on :%d (%s)", self.status_server.port, routes)
+        if self.notifier.health_check():
+            logger.info("ClusterAPI health check passed")
+        else:
+            logger.warning("ClusterAPI health check failed, but continuing...")
+        namespaces = self.config.watcher.namespaces
+        logger.info("Monitoring %s", f"namespaces: {list(namespaces)}" if namespaces else "all namespaces")
+        self._start_remediation()
+        if self._probe_agent is not None:
+            self._probe_agent.start()
+        try:
+            # batched drain: whatever accumulated in the ingest queue since
+            # the last iteration (<= ingest.batch_max) goes through the
+            # pipeline in one call, and the checkpoint sweep runs once per
+            # batch. A quiet stream gives batches of one: no added latency.
+            for batch in self.ingest.batches():
+                if self._stop.is_set():
+                    break
+                self.liveness.beat()
+                self.pipeline.process_batch(batch)
+                self._maybe_checkpoint()
+        except KeyboardInterrupt:
+            logger.info("Stopping Pod watcher...")
+        finally:
+            self.shutdown()
+
+    def _start_remediation(self) -> None:
+        """Arm remediation (``tpu.remediation.enabled``): the probe agent's
+        reports feed a confirmation policy that may quarantine (cordon and
+        taint) implicated nodes through a dedicated Kubernetes client."""
+        if not self.config.tpu.remediation_enabled:
+            return
+        if self._probe_agent is None:
+            logger.warning("tpu.remediation enabled but tpu.probe is not; nothing to act on — skipping")
+            return
+        client = getattr(self.source, "client", None)
+        if client is None:
+            logger.warning("tpu.remediation enabled but the watch source has no k8s client (mock/fake source); skipping")
+            return
+        from k8s_watcher_tpu_torch.k8s.client import K8sClient
+        from k8s_watcher_tpu_torch.remediate import build_actuator, build_policy
+
+        t = self.config.tpu
+        self.remediation = build_policy(
+            build_actuator(
+                # node PATCHes must not contend with the watch stream (a
+                # client carries at most one live watch)
+                K8sClient(client.connection, request_timeout=self.config.kubernetes.request_timeout),
+                t,
+                metrics=self.metrics,
+            ),
+            t,
+            dispatcher=self.dispatcher,
+            metrics=self.metrics,
+            environment=self.config.environment,
+        )
+        self._probe_agent.report_observer = self.remediation.observe_report
+        logger.info(
+            "Remediation plane armed (dry_run=%s, confirm_cycles=%d, budget=%d nodes, taint %s=%s:%s)",
+            t.remediation_dry_run, t.remediation_confirm_cycles, t.remediation_max_quarantined_nodes,
+            t.remediation_taint_key, t.remediation_taint_value, t.remediation_taint_effect,
+        )
+
+    def _maybe_checkpoint(self, force: bool = False) -> None:
+        if self.checkpoint is None:
+            return
+        # snapshots are O(tracked pods): build them only when the throttled
+        # store will flush (or at shutdown)
+        if not (force or self.checkpoint.due()):
+            return
+        # drain the dirty hint BEFORE the snapshot (the other order can lose
+        # an update); an idle window skips the snapshot entirely
+        changed_phases = self.phase_tracker.drain_dirty_uids()
+        if changed_phases is None or changed_phases:  # None = persist everything
+            self.checkpoint.put("phases", self.phase_tracker.snapshot(), changed_keys=changed_phases)
+        self.checkpoint.put("slices", self.slice_tracker.snapshot())
+        # the live-pod map (merged across shard streams), so a relist after
+        # a restart can synthesize DELETED for pods that vanished meanwhile
+        changed = self.ingest.drain_dirty_uids()
+        if changed is None or changed:
+            known = self.ingest.known_pods()
+            if known is not None:
+                self.checkpoint.put("known_pods", known, changed_keys=changed)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self.ingest.stop()  # stops the shard streams (incl. self.source)
+
+    def shutdown(self) -> None:
+        self.ingest.stop()
+        if self.status_server is not None:
+            self.status_server.stop()
+            self.status_server = None
+        joined = True
+        if self._probe_agent is not None:
+            joined = self._probe_agent.stop()
+        self.dispatcher.stop()
+        if self.checkpoint is not None:
+            self._maybe_checkpoint(force=True)
+            self.checkpoint.flush()
+        if self._owns_process_group:
+            import torch.distributed as dist
+
+            if dist.is_initialized():
+                if joined:
+                    dist.destroy_process_group()
+                else:
+                    logger.warning("The probe loop did not stop within 5 s; leaving the process group to the exit")
+        logger.info("Watcher metrics: %s", self.metrics.dump())

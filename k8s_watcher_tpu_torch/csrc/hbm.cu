@@ -29,6 +29,15 @@
 //
 // Every entry point returns cudaGetLastError() after its launches; the
 // Python wrapper raises on a non-zero code.
+//
+// Timing: the read sweep and the fill take an optional `elapsed_ms`, and
+// k8w_time_graph launches a captured CUDA graph (the probe's GEMM chain) the
+// same way. With it, the call records a CUDA event before its launches and
+// one after them on the same stream, waits for the second, and returns the
+// device time between them. Launches and events leave in one C call, so no
+// host delay can fall between them: the probe shares its Python process with
+// the watcher's ingest threads, and a window opened from Python also timed
+// the probe thread's waits for the interpreter lock.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -172,26 +181,71 @@ blocksum_kernel(const float4* __restrict__ x, float* __restrict__ out) {
 static_assert(WRITE_BLOCK_VECS % (BLOCKSUM_UNROLL * BLOCKSUM_THREADS) == 0,
               "blocksum loop assumes whole unrolled strides per block");
 
+// The optional device-time window of one entry point (`ms` null: untimed).
+struct Window {
+    cudaEvent_t start = nullptr;
+    cudaEvent_t end = nullptr;
+
+    ~Window() {
+        if (start) cudaEventDestroy(start);
+        if (end) cudaEventDestroy(end);
+    }
+
+    cudaError_t open(float* ms, cudaStream_t s) {
+        if (!ms) return cudaSuccess;
+        cudaError_t e = cudaEventCreate(&start);
+        if (e == cudaSuccess) e = cudaEventCreate(&end);
+        if (e == cudaSuccess) e = cudaEventRecord(start, s);
+        return e;
+    }
+
+    // after the launches: their error first, else the window's
+    cudaError_t close(float* ms, cudaStream_t s) {
+        cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess || !ms) return e;
+        e = cudaEventRecord(end, s);
+        if (e == cudaSuccess) e = cudaEventSynchronize(end);
+        if (e == cudaSuccess) e = cudaEventElapsedTime(ms, start, end);
+        return e;
+    }
+};
+
 }  // namespace
 
 extern "C" {
 
 // x: (rows, 512) f32; partials: (num_ctas, 512) f32 scratch; out: (1, 512) f32.
 int k8w_hbm_read_sweep(const float* x, long long rows, int repeats, float* partials,
-                       int num_ctas, float* out, void* stream) {
+                       int num_ctas, float* out, void* stream, float* elapsed_ms) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    Window w;
+    cudaError_t e = w.open(elapsed_ms, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
     read_sweep_kernel<<<num_ctas, SWEEP_THREADS, 0, s>>>(
         reinterpret_cast<const float4*>(x), rows, repeats, reinterpret_cast<float4*>(partials));
     column_total_kernel<<<(READ_WIDTH + 127) / 128, 128, 0, s>>>(partials, num_ctas, out);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(w.close(elapsed_ms, s));
 }
 
 // seed: 1 f32 on the device; out: n_elems f32, n_elems a multiple of 4.
 int k8w_hbm_fill(const float* seed, float* out, long long n_elems, int repeats, int num_ctas,
-                 void* stream) {
-    fill_kernel<<<num_ctas, FILL_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-        seed, reinterpret_cast<float4*>(out), n_elems / 4, repeats);
-    return static_cast<int>(cudaGetLastError());
+                 void* stream, float* elapsed_ms) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    Window w;
+    cudaError_t e = w.open(elapsed_ms, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    fill_kernel<<<num_ctas, FILL_THREADS, 0, s>>>(seed, reinterpret_cast<float4*>(out), n_elems / 4, repeats);
+    return static_cast<int>(w.close(elapsed_ms, s));
+}
+
+// One launch of an instantiated CUDA graph, timed (elapsed_ms required).
+int k8w_time_graph(void* graph_exec, void* stream, float* elapsed_ms) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    Window w;
+    cudaError_t e = w.open(elapsed_ms, s);
+    if (e == cudaSuccess) e = cudaGraphLaunch(static_cast<cudaGraphExec_t>(graph_exec), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(w.close(elapsed_ms, s));
 }
 
 // x: num_blocks write blocks of 512 x 256 f32; out: num_blocks f32.

@@ -13,9 +13,17 @@ with the JAX package's buffer layouts:
 
 A wrapper given a CPU tensor runs the plain PyTorch version beside it; given a
 CUDA tensor it launches the kernel or raises. It never falls back.
+
+:func:`read_sweep` and :func:`fill` take an optional ``timer`` (a
+``ctypes.c_float``, CUDA tensors only): the C entry point then brackets its
+launches with CUDA events itself, waits for them, and stores the device time
+in ms.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import Optional
 
 import torch
 
@@ -80,8 +88,14 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def read_sweep(x: torch.Tensor, repeats: int) -> torch.Tensor:
+def _timer_ref(timer: Optional[ctypes.c_float], device: torch.device):
+    _require(timer is None or device.type == "cuda", "timer: the kernels time themselves on CUDA tensors only")
+    return ctypes.byref(timer) if timer is not None else None
+
+
+def read_sweep(x: torch.Tensor, repeats: int, *, timer: Optional[ctypes.c_float] = None) -> torch.Tensor:
     """``repeats`` passes of column sums over ``x`` (rows, WIDTH) -> (1, WIDTH)."""
+    timer_ref = _timer_ref(timer, x.device)
     _check_f32(x, "read_sweep x")
     _require(x.dim() == 2 and x.shape[1] == WIDTH and x.shape[0] > 0,
              f"read_sweep x: expected (rows, {WIDTH}), got {tuple(x.shape)}")
@@ -95,19 +109,21 @@ def read_sweep(x: torch.Tensor, repeats: int) -> torch.Tensor:
     with torch.cuda.device(x.device):
         code = lib.k8w_hbm_read_sweep(
             x.data_ptr(), x.shape[0], repeats, partials.data_ptr(), num_ctas,
-            out.data_ptr(), _stream(x.device),
+            out.data_ptr(), _stream(x.device), timer_ref,
         )
     build.check(lib, code, "read_sweep")
     build.count("read_sweep")
     return out
 
 
-def fill(seed: torch.Tensor, num_blocks: int, repeats: int) -> torch.Tensor:
+def fill(seed: torch.Tensor, num_blocks: int, repeats: int, *,
+         timer: Optional[ctypes.c_float] = None) -> torch.Tensor:
     """``repeats`` passes stamping write block ``i`` with ``i + 1 + seed``.
 
     ``seed`` is a one-element f32 tensor on the target device, read by the
     kernel at run time. Returns the ``(num_blocks * WRITE_BLOCK_ROWS,
     WRITE_WIDTH)`` buffer."""
+    timer_ref = _timer_ref(timer, seed.device)
     _check_f32(seed, "fill seed")
     _require(seed.numel() == 1, f"fill seed: expected one element, got {seed.numel()}")
     _require(num_blocks >= 1, f"fill: num_blocks must be >= 1, got {num_blocks}")
@@ -120,7 +136,7 @@ def fill(seed: torch.Tensor, num_blocks: int, repeats: int) -> torch.Tensor:
     with torch.cuda.device(seed.device):
         code = lib.k8w_hbm_fill(
             seed.data_ptr(), out.data_ptr(), out.numel(), repeats,
-            _launch_ctas(seed.device), _stream(seed.device),
+            _launch_ctas(seed.device), _stream(seed.device), timer_ref,
         )
     build.check(lib, code, "fill")
     build.count("fill")

@@ -90,6 +90,11 @@ class Gauge:
             self._value = 0.0
             self._set = False
 
+    @property
+    def value(self) -> float:
+        with self._lock:
+            return self._value
+
     def read(self) -> Optional[float]:
         """Value, or None when cleared or never set, in one lock hold."""
         with self._lock:

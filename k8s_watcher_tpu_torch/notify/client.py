@@ -1,11 +1,17 @@
-"""The cluster API client: POSTs probe and remediation payloads (the JAX
-package's ``notify/client.py``, the per-payload path).
+"""The cluster API client: POSTs pod, slice, probe and remediation payloads
+(the JAX package's ``notify/client.py``).
 
 ``update_pod_status(payload) -> bool`` POSTs JSON with ``Authorization:
 Bearer <api_key>``; ``health_check() -> bool`` GETs the health endpoint with
 a 5 s timeout. Neither raises. Connection errors, timeouts, 5xx, 408 and 429
 are retried with exponential backoff per the configured ``RetryPolicy``;
 other 4xx are not (retrying cannot help a client error).
+
+``update_pod_statuses(payloads)`` POSTs many payloads in ONE request to the
+batch endpoint (``{"updates": [...]}`` out, ``{"results": [...]}`` back). A
+receiver that refuses the batch route (a 4xx other than 408/429) flips a
+latch, and the client answers None from then on, so the dispatcher sends
+per item: the probe costs one request ever.
 
 Requests ride a pool of persistent ``http.client`` connections (standard
 library only): any worker borrows any warm connection (LIFO), up to
@@ -27,11 +33,12 @@ import socket
 import ssl
 import threading
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 from urllib.parse import urlsplit
 
 from k8s_watcher_tpu_torch.config import RetryPolicy
 from k8s_watcher_tpu_torch.http import new_connection, proxy_for
+from k8s_watcher_tpu_torch.trace import current_traces, note_send_attempt, observe_conn_borrow
 
 logger = logging.getLogger(__name__)
 
@@ -44,6 +51,7 @@ class ClusterApiClient:
         timeout: float = 30.0,
         *,
         pod_update_endpoint: str = "/api/pods/update",
+        pod_update_batch_endpoint: str = "/api/pods/update_batch",
         health_endpoint: str = "/health",
         retry: Optional[RetryPolicy] = None,
         verify_tls: bool = True,
@@ -53,6 +61,7 @@ class ClusterApiClient:
         self.api_key = api_key
         self.timeout = timeout
         self.pod_update_endpoint = pod_update_endpoint
+        self.pod_update_batch_endpoint = pod_update_batch_endpoint
         self.health_endpoint = health_endpoint
         self.retry = retry or RetryPolicy(max_attempts=1, delay_seconds=0.0)
         self.pool_size = max(1, pool_size)
@@ -87,6 +96,8 @@ class ClusterApiClient:
         self._free: list = []
         self._live = 0
         self._conns: set = set()
+        # latched True the first time the batch route is refused
+        self._batch_unsupported = False
 
     def abort(self) -> None:
         """Cut every in-flight send and refuse further attempts: retry sleeps
@@ -187,8 +198,14 @@ class ClusterApiClient:
         a reused connection was idle-closed by the server."""
         full_path = self._request_target(path)
         headers = self._request_headers()
+        # conn_borrow spans only when a trace rides this thread's send: the
+        # untraced steady state pays no extra clock reads
+        traced = bool(current_traces())
         for attempt in range(2):
+            borrow_start = time.monotonic() if traced else 0.0
             conn = self._acquire(fresh_only=attempt > 0)
+            if traced:
+                observe_conn_borrow(borrow_start, time.monotonic())
             fresh = getattr(conn, "_kw_fresh", True)
             try:
                 conn.request(method, full_path, body=body, headers=headers)
@@ -225,6 +242,7 @@ class ClusterApiClient:
                 return 0, b""
             try:
                 logger.debug("POST %s (attempt %d/%d)", endpoint, attempt, attempts)
+                note_send_attempt()  # retries count toward the trace and the audit entry
                 status, text = self._request("POST", path, body)
                 if status == 200:
                     return status, text
@@ -265,6 +283,53 @@ class ClusterApiClient:
                 status, text.decode("utf-8", errors="replace")[:500],
             )
         return False
+
+    def update_pod_statuses(self, payloads: List[Dict[str, Any]]) -> Optional[List[bool]]:
+        """POST many payloads in ONE request to the batch endpoint; one bool
+        per payload, or None when the receiver has no batch route (latched:
+        the dispatcher then sends per item). Same retry policy as the
+        per-item path. Never raises. A 200 without a ``results`` list counts
+        as all accepted; a short list counts its missing tail as failed."""
+        if self._batch_unsupported:
+            return None
+        try:
+            body = json.dumps({"updates": payloads}).encode("utf-8")
+        except (TypeError, ValueError):
+            return None  # the per-item fallback isolates the bad payload
+        status, text = self._post_retrying(self.pod_update_batch_endpoint, body)
+        if 400 <= status < 500 and status not in (408, 429):
+            # the batch ROUTE is refused (by the receiver, or by a gateway
+            # that knows only the per-item path): no per-payload verdict, so
+            # latch and fall back per item rather than drop whole batches
+            self._batch_unsupported = True
+            logger.info(
+                "Batch endpoint %s refused (HTTP %d); falling back to per-item updates",
+                self.pod_update_batch_endpoint, status,
+            )
+            return None
+        if status != 200:
+            # connection-level failure or retry-exhausted 5xx: per-item sends
+            # would fare no better
+            logger.error(
+                "Batch update of %d payloads failed. Status: %s, Response: %s",
+                len(payloads), status or "connection-level failure",
+                text.decode("utf-8", errors="replace")[:500],
+            )
+            return [False] * len(payloads)
+        try:
+            results = json.loads(text or b"{}").get("results")
+        except (ValueError, AttributeError):
+            results = None
+        if not isinstance(results, list):
+            return [True] * len(payloads)
+        if len(results) != len(payloads):
+            logger.error(
+                "Batch response carried %d results for %d payloads; counting the tail failed",
+                len(results), len(payloads),
+            )
+            results = results[:len(payloads)]
+            results += [False] * (len(payloads) - len(results))
+        return [bool(r) for r in results]
 
     def health_check(self) -> bool:
         """GET the health endpoint; True iff 200 (5 s timeout). Runs on its

@@ -26,7 +26,7 @@ import torch
 
 from k8s_watcher_tpu_torch.config import TpuConfig
 from k8s_watcher_tpu_torch.metrics import MetricsRegistry
-from k8s_watcher_tpu_torch.notification import Notification
+from k8s_watcher_tpu_torch.pipeline.pipeline import Notification
 from k8s_watcher_tpu_torch.probe.device import (
     enumerate_devices,
     host_identity,

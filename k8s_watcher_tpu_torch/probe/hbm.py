@@ -21,6 +21,7 @@ meaningless (``interpreted`` is True).
 
 from __future__ import annotations
 
+import ctypes
 import logging
 import statistics
 import time
@@ -50,18 +51,30 @@ def _pick_repeats(actual_bytes: int, target_traffic: int = 32 << 30) -> int:
     return max(1, min(256, target_traffic // max(actual_bytes, 1)))
 
 
-def _timed_pass_ms(run_fenced, iters: int, baseline_ms: float, repeats: int,
+def _timed_pass_ms(run, device, iters: int, baseline_ms: float, repeats: int,
                    budget_ms: float = 10_000.0):
-    """(per_pass_ms, per_pass_min_ms, unreliable): median (and min) of the
-    fenced executions minus the fence baseline, per pass. Flagged unreliable
-    when the device share is under a quarter of the baseline; the loop stops
-    once ``budget_ms`` of wall time is spent (a badly degraded part)."""
+    """(per_pass_ms, per_pass_min_ms, unreliable): median (and min) time of
+    ``iters`` fenced executions of ``run(timer)``, per pass. On a card the
+    kernel times itself (``timer``: the device time between CUDA events its
+    C entry point records around its launches; no fence inside). On the CPU
+    the host clock spans run and fence, minus the fence baseline, and the
+    reading is flagged unreliable when the device share is under a quarter
+    of the baseline. The loop stops once ``budget_ms`` of wall time is spent
+    (a badly degraded part)."""
+    on_card = device.type == "cuda"
+    if on_card:
+        baseline_ms = 0.0
     per_exec = []
     loop_t0 = time.perf_counter()
     for _ in range(iters):
-        t0 = time.perf_counter()
-        run_fenced()
-        per_exec.append(1e3 * (time.perf_counter() - t0))
+        if on_card:
+            timer = ctypes.c_float()
+            fetch_scalar(run(timer))
+            per_exec.append(timer.value)
+        else:
+            t0 = time.perf_counter()
+            fetch_scalar(run(None))
+            per_exec.append(1e3 * (time.perf_counter() - t0))
         if 1e3 * (time.perf_counter() - loop_t0) > budget_ms:
             break
     median = statistics.median(per_exec)
@@ -104,7 +117,7 @@ def run_hbm_probe(
 
         baseline_ms = fence_baseline_ms(device)
         pass_ms, pass_min_ms, unreliable = _timed_pass_ms(
-            lambda: fetch_scalar(kernels.read_sweep(x, repeats)), iters, baseline_ms, repeats
+            lambda timer: kernels.read_sweep(x, repeats, timer=timer), device, iters, baseline_ms, repeats
         )
 
         return {
@@ -157,10 +170,10 @@ def run_hbm_write_probe(
             fetch_scalar(s)
         seeds = iter(seed_tensors)
 
-        def run_fenced():
-            fetch_scalar(kernels.fill(next(seeds), num_blocks, repeats))
-
-        pass_ms, pass_min_ms, unreliable = _timed_pass_ms(run_fenced, iters, baseline_ms, repeats)
+        pass_ms, pass_min_ms, unreliable = _timed_pass_ms(
+            lambda timer: kernels.fill(next(seeds), num_blocks, repeats, timer=timer), device, iters,
+            baseline_ms, repeats,
+        )
 
         # verify the first buffer (every pass writes the same seed-0 pattern)
         # rather than re-running the multi-pass writer

@@ -29,7 +29,14 @@ from k8s_watcher_tpu_torch.parallel.collectives import (
 )
 from k8s_watcher_tpu_torch.parallel.mesh import Mesh, host_chip_mesh
 from k8s_watcher_tpu_torch.probe.device import device_id, resolve_device
-from k8s_watcher_tpu_torch.probe.timing import fence_baseline_ms, fetch_scalar, timed_fenced
+from k8s_watcher_tpu_torch.probe.timing import (
+    TimedStats,
+    capture_graph,
+    fence_baseline_ms,
+    fetch_scalar,
+    graph_times_ms,
+    timed_fenced,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -166,8 +173,13 @@ def run_mxu_probe(
         out = step((a, b))
         fetch_scalar(out)  # warmup (fenced)
         finite = bool(torch.isfinite(out.float()).all())
-        baseline_ms = fence_baseline_ms(device)
-        stats = timed_fenced(step, (a, b), iters, baseline_ms)
+        if device.type == "cuda":
+            # one graph launch per timed run: see probe/timing.py
+            graph, graph_out = capture_graph(lambda: step((a, b)), device)
+            stats = TimedStats.of([ms / 1e3 for ms in graph_times_ms(graph, device, iters)])
+            finite = finite and bool(torch.isfinite(graph_out.float()).all())
+        else:
+            stats = timed_fenced(step, (a, b), iters, fence_baseline_ms(device))
         tmin = stats[0]
         flops = 2.0 * size**3 * inner_iters
         return {

@@ -4,7 +4,7 @@
 import time
 from typing import Any, Dict
 
-from k8s_watcher_tpu_torch.notification import Notification
+from k8s_watcher_tpu_torch.pipeline.pipeline import Notification
 from k8s_watcher_tpu_torch.remediate.actuator import ActionRecord, NodeActuator
 from k8s_watcher_tpu_torch.remediate.policy import ProbeRemediationPolicy
 

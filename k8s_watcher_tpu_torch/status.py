@@ -1,14 +1,22 @@
-"""The probe agent's status server: ``/metrics``, ``/healthz`` and the agent's
-``/debug`` routes over HTTP (the JAX package's ``metrics/server.py``, with the
-agent's routes only).
+"""The status server of the watcher and of the probe agent: ``/metrics``,
+``/healthz`` and the ``/debug`` routes over HTTP (the JAX package's
+``metrics/server.py``, with the routes of the planes the port carries).
 
 - ``/metrics``: the registry as JSON, or Prometheus text when the client asks
   for it (``Accept: text/plain`` or ``openmetrics``, or ``?format=prometheus``);
-- ``/healthz``: 200 while the probe loop's heartbeat is fresh, 503 once it is
-  stale (the DaemonSet's liveness target);
+- ``/healthz``: 200 while the heartbeat (the watch loop's, or the probe
+  loop's) is fresh and, when the dispatcher's egress verdict is wired, the
+  egress side is moving; 503 otherwise (the liveness target);
+- ``/debug/events?n=&uid=``: the audit ring's last pipeline decisions and
+  egress outcomes;
+- ``/debug/trace?n=&uid=&slowest=``: the tracing plane's sampled journeys;
+- ``/debug/slices``: the slice tracker's live slices;
+- ``/debug/checkpoint``: the checkpoint store's stats;
 - ``/debug/trend``: the trend tracker's anchors and windows;
 - ``/debug/probes?n=``: the last ``n`` cycle summaries (400 on a bad ``n``);
 - ``/debug/remediation``: the remediation policy's state.
+
+A route whose plane is not wired answers 404 naming the config key.
 
 With a bearer token every route but ``/healthz`` needs ``Authorization:
 Bearer <token>`` and answers 401 with ``WWW-Authenticate: Bearer`` without
@@ -28,6 +36,7 @@ from typing import Callable, Optional
 from urllib.parse import parse_qs, urlparse
 
 from k8s_watcher_tpu_torch.metrics import MetricsRegistry
+from k8s_watcher_tpu_torch.trace import ALL_STAGES
 
 
 class QuietThreadingHTTPServer(ThreadingHTTPServer):
@@ -54,6 +63,28 @@ def send_json(handler: BaseHTTPRequestHandler, status: int, body: dict) -> None:
     handler.send_header("Content-Length", str(len(data)))
     handler.end_headers()
     handler.wfile.write(data)
+
+
+def trace_ring_response(ring, params: dict) -> tuple:
+    """``(status, body)`` of a ``/debug/trace`` query. Junk answers 400, never
+    an empty 200: ``n`` must be a non-negative int and ``slowest`` a stage of
+    ``ALL_STAGES``."""
+    if ring is None:
+        return 404, {"error": "tracing disabled (trace.enabled: false)"}
+    try:
+        n = int(params.get("n", "50"))
+    except ValueError:
+        return 400, {"error": f"bad n={params.get('n')!r} (must be an integer)"}
+    if n < 0:
+        return 400, {"error": f"bad n={n} (must be >= 0)"}
+    slowest = params.get("slowest")
+    if slowest is not None and slowest not in ALL_STAGES:
+        return 400, {"error": f"bad slowest={slowest!r} (stages: {', '.join(ALL_STAGES)})"}
+    return 200, {
+        "traces": ring.snapshot(n, uid=params.get("uid"), slowest=slowest),
+        "ring_size": len(ring),
+        "stages": list(ALL_STAGES),
+    }
 
 
 def bearer_authorized(header: Optional[str], token: Optional[str]) -> bool:
@@ -125,8 +156,15 @@ class _StatusHandler(BaseHTTPRequestHandler):
     disable_nagle_algorithm = True
     metrics: MetricsRegistry
     liveness: Liveness
+    audit = None  # audit.AuditRing: pipeline decisions and egress outcomes
+    trace = None  # trace.TraceRing: sampled journeys
+    egress = None  # Callable[[], dict]: the dispatcher's egress verdict, folded into /healthz
+    slices = None  # Callable[[], dict]: live slice states
+    checkpoint = None  # Callable[[], dict]: checkpoint store stats
     trend = None  # Callable[[], dict]: trend anchors and windows
-    remediation = None  # Callable[[], dict]: remediation policy state
+    # Callable[[], Optional[dict]]: remediation policy state; None while the
+    # plane is configured but not armed
+    remediation = None
     probes = None  # Callable[[int], list]: last-N cycle summaries
     auth_token: Optional[str] = None
 
@@ -165,12 +203,42 @@ class _StatusHandler(BaseHTTPRequestHandler):
             else:
                 self._json(200, self.metrics.dump())
         elif parsed.path == "/healthz":
-            alive = self.liveness.alive()
-            self._json(200 if alive else 503, {
+            watch_alive = self.liveness.alive()
+            egress = self.egress() if self.egress is not None else None
+            # a watcher whose egress workers are all dead, or whose lane is
+            # wedged past the stall threshold, is as blind as one that lost
+            # its watch, and a restart can fix both
+            alive = watch_alive and (egress is None or bool(egress.get("healthy", True)))
+            body = {
                 "alive": alive,
-                "watch_alive": alive,
+                "watch_alive": watch_alive,
                 "last_heartbeat_age_seconds": round(self.liveness.age_seconds(), 1),
-            })
+            }
+            if egress is not None:
+                body["egress"] = egress
+            self._json(200 if alive else 503, body)
+        elif parsed.path == "/debug/events":
+            if self.audit is None:
+                self._json(404, {"error": "audit ring disabled (watcher.audit_ring_size: 0)"})
+                return
+            try:
+                n = int(params.get("n", "50"))
+            except ValueError:
+                self._json(400, {"error": f"bad n={params.get('n')!r}"})
+                return
+            self._json(200, {"events": self.audit.snapshot(n, uid=params.get("uid")), "ring_size": len(self.audit)})
+        elif parsed.path == "/debug/trace":
+            self._json(*trace_ring_response(self.trace, params))
+        elif parsed.path == "/debug/slices":
+            if self.slices is None:
+                self._json(404, {"error": "slice tracking not wired"})
+                return
+            self._json(200, {"slices": self.slices()})
+        elif parsed.path == "/debug/checkpoint":
+            if self.checkpoint is None:
+                self._json(404, {"error": "checkpointing not enabled (state.checkpoint_path)"})
+                return
+            self._json(200, {"checkpoint": self.checkpoint()})
         elif parsed.path == "/debug/trend":
             if self.trend is None:
                 self._json(404, {"error": "trend tracking not wired (tpu.probe.trend_enabled)"})
@@ -190,7 +258,11 @@ class _StatusHandler(BaseHTTPRequestHandler):
             if self.remediation is None:
                 self._json(404, {"error": "remediation not wired (tpu.remediation.enabled)"})
                 return
-            self._json(200, {"remediation": self.remediation()})
+            state = self.remediation()
+            if state is None:
+                self._json(200, {"remediation": None, "note": "configured but not armed (not leading yet)"})
+                return
+            self._json(200, {"remediation": state})
         else:
             self._json(404, {"error": f"no route {self.path}"})
 
@@ -205,8 +277,13 @@ class StatusServer:
         liveness: Liveness,
         *,
         port: int = 0,
+        audit=None,
+        trace=None,
+        egress: Optional[Callable[[], dict]] = None,
+        slices: Optional[Callable[[], dict]] = None,
+        checkpoint: Optional[Callable[[], dict]] = None,
         trend: Optional[Callable[[], dict]] = None,
-        remediation: Optional[Callable[[], dict]] = None,
+        remediation: Optional[Callable[[], Optional[dict]]] = None,
         probes: Optional[Callable[[int], list]] = None,
         auth_token: Optional[str] = None,
     ):
@@ -216,6 +293,11 @@ class StatusServer:
             {
                 "metrics": metrics,
                 "liveness": liveness,
+                "audit": audit,
+                "trace": trace,
+                "egress": staticmethod(egress) if egress else None,
+                "slices": staticmethod(slices) if slices else None,
+                "checkpoint": staticmethod(checkpoint) if checkpoint else None,
                 "trend": staticmethod(trend) if trend else None,
                 "remediation": staticmethod(remediation) if remediation else None,
                 "probes": staticmethod(probes) if probes else None,

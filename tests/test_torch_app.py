@@ -1,0 +1,390 @@
+"""The port's ``WatcherApp`` held against the JAX package's.
+
+Both apps run at once, each against its own ``MockApiServer`` seeded alike
+with ``chip_smoke.GpuCluster``'s cluster at a small size (about 200 pods, 16
+JobSets of 4 GPU workers), under the ``development`` and ``production``
+rules with the planes the port does not carry switched off. The cluster's
+churn is applied to both; then both must have sent the same payloads
+(without the ``event_timestamp`` wall stamp), the same last state per pod,
+the same slice notifications, and left checkpoint files of the same names
+that read back the same state through either package.
+Under the ``production`` rules the result must also equal
+``chip_smoke.fold_production``, the plain reference the card run checks
+against. The watcher's status routes answer alike with and without the
+bearer; a restart from the checkpoint synthesizes the same DELETED for pods
+deleted while down; the app with the probe on runs with ``device="cpu"``;
+and every unported plane is refused at construction.
+"""
+
+import copy
+import dataclasses
+import json
+import socket
+import threading
+import time
+import urllib.error
+import urllib.request
+from collections import Counter
+
+import pytest
+
+import chip_smoke
+from conftest import CONFIG_DIR
+from k8s_watcher_tpu.app import WatcherApp as RefApp
+from k8s_watcher_tpu.config.loader import load_config as ref_load_config
+from k8s_watcher_tpu.k8s.mock_server import MockApiServer, MockCluster
+from k8s_watcher_tpu.state.checkpoint import CheckpointStore as RefStore
+from k8s_watcher_tpu_torch.app import UNPORTED_PLANES, WatcherApp
+from k8s_watcher_tpu_torch.config import ConfigError, load_app_config
+from k8s_watcher_tpu_torch.state.checkpoint import CheckpointStore
+from k8s_watcher_tpu_torch.watch.fake import FakeWatchSource
+
+TOKEN = "app-status-tökén"
+WAIT_S = 20.0
+
+
+class FastMockApiServer(MockApiServer):
+    def start(self):
+        self._thread = threading.Thread(target=self._server.serve_forever, kwargs={"poll_interval": 0.05},
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+
+class Recorder:
+    """Stands in for the cluster API client: records every payload."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.payloads = []
+
+    def update_pod_status(self, payload):
+        with self.lock:
+            self.payloads.append(json.loads(json.dumps(payload)))
+        return True
+
+    def update_pod_statuses(self, payloads):
+        return [self.update_pod_status(p) for p in payloads]
+
+    def health_check(self):
+        return True
+
+    def snapshot(self):
+        with self.lock:
+            return list(self.payloads)
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def small_cluster(seed, namespace):
+    return chip_smoke.GpuCluster(seed, nodes=16, pods=200, jobsets=16, workers=4, churn=600, failures=2,
+                                 down_deletions=3, jobset_namespace=namespace)
+
+
+def make_config(pkg, environment, server_url, workdir, *, status_port=0, probe=False, coalesce=True):
+    workdir.mkdir(parents=True, exist_ok=True)
+    kubeconfig = workdir / "kubeconfig.json"
+    kubeconfig.write_text(json.dumps({
+        "apiVersion": "v1", "kind": "Config", "current-context": "m",
+        "clusters": [{"name": "m", "cluster": {"server": server_url}}],
+        "contexts": [{"name": "m", "context": {"cluster": "m", "user": "m"}}],
+        "users": [{"name": "m", "user": {"token": "t"}}],
+    }))
+    env = {"WATCHER_STATUS_TOKEN": TOKEN, "WATCHER_CHECKPOINT_PATH": str(workdir / "ck.json")}
+    config = (ref_load_config if pkg == "ref" else load_app_config)(environment, CONFIG_DIR, env=env)
+    off = {name: dataclasses.replace(getattr(config, name), enabled=False)
+           for name in ("serve", "history", "analytics", "health", "slo")}
+    tpu = dataclasses.replace(config.tpu, backend="gpu", resource_key=chip_smoke.GPU_KEY, node_watch_enabled=False,
+                              probe_enabled=probe, probe_interval_seconds=0.2, probe_hbm_bytes=2 << 20,
+                              probe_matmul_size=64, probe_payload_bytes=4096, probe_links_enabled=False)
+    return dataclasses.replace(
+        config, **off, tpu=tpu,
+        watcher=dataclasses.replace(
+            config.watcher, status_port=status_port,
+            leader_election=dataclasses.replace(config.watcher.leader_election, enabled=False)),
+        kubernetes=dataclasses.replace(config.kubernetes, use_mock=False, use_incluster_config=False,
+                                       config_file=str(kubeconfig), watch_timeout_seconds=10),
+        state=dataclasses.replace(config.state, checkpoint_path=str(workdir / "ck.json"),
+                                  checkpoint_interval_seconds=3600.0),
+        clusterapi=dataclasses.replace(config.clusterapi, coalesce=coalesce),
+    )
+
+
+class Side:
+    """One package's app, its mock apiserver and its recorder."""
+
+    def __init__(self, pkg, cluster, environment, tmp_path, **config_kw):
+        self.pkg = pkg
+        self.mock = MockCluster()
+        self.mock.namespaces = list(chip_smoke.WATCHED_NAMESPACES) + [chip_smoke.UNWATCHED_NAMESPACE]
+        for _, pod in chip_smoke.GpuCluster.pods(cluster.initial):
+            self.mock.add_pod(copy.deepcopy(pod))
+        self.server = FastMockApiServer(self.mock).start()
+        self.workdir = tmp_path / pkg
+        self.config_kw = dict(config_kw, environment=environment)
+        self.recorder = None
+        self.app = None
+
+    def config(self):
+        kw = dict(self.config_kw)
+        return make_config(self.pkg, kw.pop("environment"), self.server.url, self.workdir, **kw)
+
+    def start(self, **app_kw):
+        self.recorder = Recorder()
+        cls = RefApp if self.pkg == "ref" else WatcherApp
+        self.app = cls(self.config(), notifier=self.recorder, **app_kw)
+        self.thread = threading.Thread(target=self.app.run, daemon=True)
+        self.thread.start()
+        return self
+
+    def source(self):
+        return self.app.ingest.sources[0]
+
+    def wait_synced(self):
+        """Until the app has handled everything up to the mock's latest rv
+        and the dispatcher is drained."""
+        rv = str(self.mock.latest_rv())
+        deadline = time.monotonic() + WAIT_S
+        while time.monotonic() < deadline:
+            if self.source().resource_version == rv and self.app.ingest.queue.depth() == 0:
+                break
+            time.sleep(0.02)
+        assert self.source().resource_version == rv, (self.pkg, self.source().resource_version, rv)
+        time.sleep(0.05)  # the drain thread's batch in flight
+        assert self.app.dispatcher.drain(WAIT_S)
+
+    def apply(self, steps):
+        for kind, pod in chip_smoke.GpuCluster.pods(steps):
+            pod = copy.deepcopy(pod)
+            if kind == "ADDED":
+                self.mock.add_pod(pod)
+            elif kind == "MODIFIED":
+                self.mock.modify_pod(pod)
+            else:
+                self.mock.delete_pod(pod["metadata"]["namespace"], pod["metadata"]["name"])
+
+    def stop(self):
+        t0 = time.monotonic()
+        self.app.stop()
+        self.thread.join(WAIT_S)
+        assert not self.thread.is_alive()
+        return time.monotonic() - t0
+
+    def close(self):
+        self.server.stop()
+
+
+def strip(payload):
+    return {k: v for k, v in payload.items() if k != "event_timestamp"}
+
+
+def summary(payloads):
+    """(multiset of payloads, last pod payload per uid, slice transitions)."""
+    multiset = Counter(json.dumps(strip(p), sort_keys=True) for p in payloads)
+    last, slices = {}, {}
+    for p in payloads:
+        if p.get("event_type") == "SLICE_PHASE_CHANGE":
+            slices.setdefault(p["slice"], []).append((p["phase_transition"]["from"], p["phase_transition"]["to"]))
+        elif p.get("event_type") in ("ADDED", "MODIFIED", "DELETED"):
+            last[p["uid"]] = (p["event_type"], p["status"]["phase"], p["namespace"], p["name"])
+    return multiset, last, slices
+
+
+def checkpoint_files(side):
+    return sorted(p.name for p in side.workdir.iterdir() if p.name.startswith("ck.json"))
+
+
+def checkpoint_state(side, reader):
+    """What a restart reads back from ``side``'s checkpoint files, through
+    ``reader``'s store. (When the flushes ran depends on thread timing, so
+    the journals may split the same state differently; the state is what
+    must match.)"""
+    store = (RefStore if reader == "ref" else CheckpointStore)(side.workdir / "ck.json")
+    for key in ("known_pods", "phases"):
+        store.attach_journaled_map(key)
+    return {"rv": store.resource_version(), **{k: store.get(k) for k in ("slices", "known_pods", "phases")}}
+
+
+def run_both(tmp_path, environment, seed, *, namespace, coalesce=False, status=False, between=None):
+    cluster = small_cluster(seed, namespace)
+    ports = {"ref": free_port(), "port": free_port()} if status else {"ref": 0, "port": 0}
+    sides = {pkg: Side(pkg, cluster, environment, tmp_path, status_port=ports[pkg], coalesce=coalesce)
+             for pkg in ("ref", "port")}
+    try:
+        for side in sides.values():
+            side.start()
+        for side in sides.values():
+            side.wait_synced()
+        for side in sides.values():
+            side.apply(cluster.churn)
+        for side in sides.values():
+            side.wait_synced()
+        extra = between(sides) if between is not None else None
+        stop_s = {pkg: side.stop() for pkg, side in sides.items()}
+    finally:
+        for side in sides.values():
+            side.close()
+    return cluster, sides, stop_s, extra
+
+
+@pytest.mark.parametrize("environment, namespace", [("development", "default"), ("production", "production")])
+def test_same_notifications_slices_and_checkpoint(tmp_path, environment, namespace):
+    cluster, sides, stop_s, _ = run_both(tmp_path, environment, 0, namespace=namespace)
+    got = summary(sides["port"].recorder.snapshot())
+    want = summary(sides["ref"].recorder.snapshot())
+    assert got == want
+    assert checkpoint_files(sides["port"]) == checkpoint_files(sides["ref"])
+    state = checkpoint_state(sides["port"], "port")
+    assert state == checkpoint_state(sides["ref"], "ref") == checkpoint_state(sides["ref"], "port")
+    assert state == checkpoint_state(sides["port"], "ref")
+    assert state["rv"] and state["known_pods"] and state["phases"]
+    assert max(stop_s.values()) < 10.0
+    _, last, slices = got
+    assert slices and (last if environment == "production" else got[0])
+    if environment == "production":
+        # the card run's plain reference agrees with both apps
+        fold_last, fold_slices = chip_smoke.fold_production(
+            chip_smoke.GpuCluster.facts(cluster.initial) + chip_smoke.GpuCluster.facts(cluster.churn))
+        assert last == fold_last
+        assert slices == fold_slices
+        degraded = sorted(k for k, t in slices.items() if any(to == "Degraded" for _, to in t))
+        assert degraded == cluster.failed_jobsets
+
+
+def test_fold_reads_pods_as_the_cluster_steps_say():
+    cluster = small_cluster(1, "production")
+    steps = cluster.initial + cluster.churn
+    assert [chip_smoke.facts_of(k, p) for k, p in chip_smoke.GpuCluster.pods(steps)] == \
+        chip_smoke.GpuCluster.facts(steps)
+
+
+def _get(port, route, token=None):
+    headers = {"Authorization": f"Bearer {token}".encode("utf-8").decode("latin-1")} if token else {}
+    request = urllib.request.Request(f"http://127.0.0.1:{port}{route}", headers=headers)
+    try:
+        with urllib.request.urlopen(request, timeout=10) as r:
+            status, body, ctype = r.status, r.read(), r.headers.get("Content-Type", "")
+    except urllib.error.HTTPError as e:
+        status, body, ctype = e.code, e.read(), e.headers.get("Content-Type", "")
+    return status, (json.loads(body) if ctype.startswith("application/json") else body)
+
+
+ROUTES = ("/healthz", "/debug/slices", "/debug/events?n=1000", "/debug/events?n=x", "/debug/trace?n=1000",
+          "/debug/trace?slowest=nope", "/debug/checkpoint", "/metrics", "/debug/nope")
+
+
+def _normalize(route, body):
+    """What must match: wall stamps, ids and timings left out."""
+    if not isinstance(body, dict):
+        return body
+    if route == "/healthz":
+        return {k: v for k, v in body.items() if k != "last_heartbeat_age_seconds"}
+    if route.startswith("/debug/events") and "events" in body:
+        drop = ("ts", "seq", "trace_id")
+        return sorted(json.dumps({k: v for k, v in e.items() if k not in drop}, sort_keys=True)
+                      for e in body["events"])
+    if route.startswith("/debug/trace") and "traces" in body:
+        return sorted((t["uid"], t["outcome"], t["kind"], t["sampled_by"], tuple(s["stage"] for s in t["spans"]))
+                      for t in body["traces"])
+    if route == "/debug/checkpoint":
+        return sorted(body["checkpoint"])
+    if route == "/metrics":
+        counters = ("events_received", "notifications_enqueued", "slice_notifications_enqueued",
+                    "events_dropped_namespace", "events_dropped_resource", "events_dropped_critical_gate",
+                    "events_dropped_insignificant", "events_prefiltered", "dispatch_enqueued", "dispatch_sent",
+                    "relists", "relist_pages")
+        return {k: body[k]["count"] for k in counters if k in body}
+    return body
+
+
+def test_status_routes_answer_alike(tmp_path):
+    def query(sides):
+        ports = {pkg: side.app.config.watcher.status_port for pkg, side in sides.items()}
+        out = {}
+        for pkg, port in ports.items():
+            out[pkg] = {(route, auth): _get(port, route, auth) for route in ROUTES
+                        for auth in (None, "wrong", TOKEN)}
+        return out
+
+    _, _, _, answers = run_both(tmp_path, "production", 2, namespace="production", coalesce=True, status=True,
+                                between=query)
+    for key, (status, body) in answers["port"].items():
+        route, auth = key
+        want_status, want_body = answers["ref"][key]
+        assert status == want_status, key
+        assert _normalize(route, body) == _normalize(route, want_body), key
+        if route != "/healthz" and auth != TOKEN:
+            assert status == 401 and body == b""
+    assert answers["port"][("/healthz", None)][1]["alive"] is True
+    assert len(answers["port"][("/debug/slices", TOKEN)][1]["slices"]) == 16
+
+
+def test_restart_synthesizes_deleted_alike(tmp_path):
+    def restart(sides):
+        out = {}
+        for pkg, side in sides.items():
+            side.stop()
+            gone = cluster.down_deletions
+            for ns, name, _ in gone:
+                side.mock.delete_pod(ns, name)
+            side.mock.compact()
+            side.start()  # a new app on the same checkpoint
+            side.wait_synced()
+            out[pkg] = sorted((p["event_type"], p["uid"], p["status"]["phase"])
+                              for p in side.recorder.snapshot() if p.get("event_type") == "DELETED")
+        return out
+
+    cluster = small_cluster(3, "production")  # run_both builds the same cluster from the seed
+    _, sides, _, deleted = run_both(tmp_path, "production", 3, namespace="production", between=restart)
+    assert deleted["port"] == deleted["ref"]
+    assert [uid for _, uid, _ in deleted["port"]] == sorted(uid for _, _, uid in cluster.down_deletions)
+
+
+def test_probe_on_the_cpu_reports_and_arms_remediation(tmp_path):
+    cluster = small_cluster(4, "production")
+    side = Side("port", cluster, "production", tmp_path, status_port=free_port(), probe=True)
+    try:
+        side.start(device="cpu", expected_platform="cpu")
+        deadline = time.monotonic() + WAIT_S
+        while time.monotonic() < deadline:
+            if sum(p.get("event_type") == "TPU_PROBE" for p in side.recorder.snapshot()) >= 2:
+                break
+            time.sleep(0.05)
+        port = side.app.config.watcher.status_port
+        probes = _get(port, "/debug/probes?n=5", TOKEN)
+        remediation = _get(port, "/debug/remediation", TOKEN)
+        stop_s = side.stop()
+    finally:
+        side.close()
+    reports = [p for p in side.recorder.snapshot() if p.get("event_type") == "TPU_PROBE"]
+    assert len(reports) >= 2 and all(r["healthy"] for r in reports)
+    assert probes[0] == 200 and len(probes[1]["probes"]) >= 2
+    assert remediation[0] == 200 and remediation[1]["remediation"]["dry_run"] is True
+    assert stop_s < 10.0
+
+
+def test_probe_without_a_gpu_is_refused_at_construction(tmp_path):
+    config = make_config("port", "production", "http://127.0.0.1:1", tmp_path, probe=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WatcherApp(config, notifier=Recorder(), source=FakeWatchSource([]))
+
+
+@pytest.mark.parametrize("key", [key for key, _ in UNPORTED_PLANES])
+def test_unported_plane_is_refused(tmp_path, key):
+    config = make_config("port", "production", "http://127.0.0.1:1", tmp_path)
+    section, _, field = key.rpartition(".")
+    if key == "ingest.processes":
+        config = dataclasses.replace(config, ingest=dataclasses.replace(config.ingest, processes=1))
+    elif key == "tpu.node_watch.enabled":
+        config = dataclasses.replace(config, tpu=dataclasses.replace(config.tpu, node_watch_enabled=True))
+    elif key == "watcher.leader_election.enabled":
+        config = dataclasses.replace(config, watcher=dataclasses.replace(
+            config.watcher, leader_election=dataclasses.replace(config.watcher.leader_election, enabled=True)))
+    else:
+        config = dataclasses.replace(config, **{section: dataclasses.replace(getattr(config, section), enabled=True)})
+    with pytest.raises(ConfigError, match=f"config key '{key}'.*not yet ported"):
+        WatcherApp(config, notifier=Recorder())

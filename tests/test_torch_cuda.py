@@ -63,3 +63,53 @@ def test_one_cycle_on_card_is_healthy(cuda_device):
     report = ProbeAgent(config, environment="development", sink=lambda n: None, device=cuda_device).run_once()
     assert report.healthy, report.to_payload()
     assert report.hbm["interpreted"] is False and report.hbm_write["interpreted"] is False
+
+
+def test_device_timing_ignores_threads_holding_the_interpreter(cuda_device):
+    """The watcher runs the probe beside ingest threads busy in Python. The
+    GEMM chain's and the HBM sweeps' readings must be the card's: timed by
+    the C side around one launch, threads hogging the interpreter lock
+    cannot slow them down (timed from Python, the chain read tens of times
+    slower)."""
+    import threading
+
+    from k8s_watcher_tpu_torch.probe.ici import run_mxu_probe
+
+    def readings():
+        return (run_mxu_probe(1024, inner_iters=8, device=cuda_device),
+                port.run_hbm_probe(64 << 20, device=cuda_device),
+                port.run_hbm_write_probe(64 << 20, device=cuda_device))
+
+    quiet = readings()
+    stop = threading.Event()
+
+    def hog():
+        n = 0
+        while not stop.is_set():
+            n = (n * 31 + 7) % 1000003  # pure Python: holds the lock between switches
+
+    threads = [threading.Thread(target=hog, daemon=True) for _ in range(3)]
+    for t in threads:
+        t.start()
+    try:
+        busy = readings()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(5)
+    assert all(r["ok"] for r in quiet + busy), (quiet, busy)
+    assert busy[0]["tflops_median"] > 0.7 * quiet[0]["tflops_median"], (quiet[0], busy[0])
+    assert busy[1]["read_gbps"] > 0.8 * quiet[1]["read_gbps"], (quiet[1], busy[1])
+    assert busy[2]["write_gbps"] > 0.8 * quiet[2]["write_gbps"], (quiet[2], busy[2])
+
+
+def test_kernels_time_themselves(cuda_device):
+    import ctypes
+
+    x = torch.ones((64 * K.BLOCK_ROWS, K.WIDTH), device=cuda_device)
+    timer = ctypes.c_float()
+    out = K.read_sweep(x, 4, timer=timer)
+    assert torch.equal(out, K.read_sweep_plain(x, 4)) and timer.value > 0
+    fill_timer = ctypes.c_float()
+    K.fill(carry.seed(1.0, cuda_device), 64, 4, timer=fill_timer)
+    assert fill_timer.value > 0

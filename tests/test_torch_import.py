@@ -7,7 +7,11 @@ imports every module of ``k8s_watcher_tpu_torch``, runs one CPU probe cycle
 through the ``probe_agent`` entry point with the ``production`` settings
 (the per-link walk on), and reports what ``sys.modules``
 holds afterwards. A second test runs the entry point's loop mode as a
-process, against a local receiver, and stops it with SIGINT.
+process, against a local receiver, and stops it with SIGINT. A third runs
+the watcher, ``python -m k8s_watcher_tpu_torch development --cpu``, on a
+temporary config with the planes the port does not carry switched off and
+the probe on: it must notify, answer ``/healthz``, hold no JAX module, and
+exit 0 within 10 s of SIGINT.
 """
 
 import json
@@ -56,7 +60,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert result["forbidden"] == []
     assert result["rc"] == 0 and result["healthy"] is True
     assert result["links"] is not None and result["links"]["ok"]
-    for module in ("config", "metrics", "notification", "carry", "probe_agent", "logging_setup", "status",
+    for module in ("config", "metrics", "carry", "probe_agent", "logging_setup", "status", "app", "cli",
+                   "__main__", "trace", "audit", "http", "watch.source", "watch.sharded", "watch.fake",
+                   "state.dirty", "state.checkpoint", "pipeline.filters", "pipeline.phase", "pipeline.extract",
+                   "pipeline.pipeline", "slices.topology", "slices.tracker", "native.scanner", "k8s.watch",
                    "probe.timing", "probe.device", "probe.hbm", "probe.ici", "probe.trend",
                    "probe.report", "probe.agent", "probe.links", "probe.multislice",
                    "kernels.build", "kernels.hbm",
@@ -139,3 +146,77 @@ def test_probe_agent_loop_mode_serves_reports_and_stops_on_sigint(tmp_path):
     assert path == "/api/pods/update" and auth == "Bearer test-key"
     assert payload["event_type"] == "TPU_PROBE" and payload["healthy"] is True
     assert f"probe status endpoint on :{status_port}" in out
+
+
+_WATCHER = """
+import atexit, json, runpy, sys
+out_path = sys.argv[2]
+def report():
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "k8s_watcher_tpu"))
+    with open(out_path, "w") as fh:
+        json.dump(loaded, fh)
+atexit.register(report)
+sys.argv = ["k8s_watcher_tpu_torch", sys.argv[1], "--cpu"]
+runpy.run_module("k8s_watcher_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def _payloads(posts):
+    """``(path, auth, payload)`` per payload, batched POSTs unpacked."""
+    return [(path, auth, p) for path, auth, body in list(posts)
+            for p in (body["updates"] if path.endswith("update_batch") else [body])]
+
+
+def test_watcher_entry_point_runs_on_the_cpu_and_stops_on_sigint(tmp_path):
+    handler = type("Receiver", (_Receiver,), {"posts": []})
+    receiver = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    threading.Thread(target=receiver.serve_forever, daemon=True).start()
+    status_port = _free_port()
+    config_dir = tmp_path / "config"
+    config_dir.mkdir()
+    shutil.copy(REPO / "config" / "base.yaml", config_dir / "base.yaml")
+    overlay = yaml.safe_load((REPO / "config" / "development.yaml").read_text())
+    overlay["clusterapi"]["base_url"] = f"http://127.0.0.1:{receiver.server_address[1]}"
+    overlay["watcher"]["status_port"] = status_port
+    for plane in ("serve", "history", "analytics", "health", "slo"):
+        overlay.setdefault(plane, {})["enabled"] = False
+    overlay.setdefault("tpu", {})["probe"] = {
+        "enabled": True, "interval_seconds": 0.2, "hbm_bytes": 2 << 20, "matmul_size": 64, "payload_bytes": 4096,
+    }
+    (config_dir / "development.yaml").write_text(yaml.safe_dump(overlay))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "MASTER_ADDR", "RANK", "LOCAL_RANK")}
+    env.update(PYTHONPATH=str(REPO), CLUSTERAPI_API_KEY="test-key", OMP_NUM_THREADS="1")
+    modules = tmp_path / "modules.json"
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _WATCHER, "development", str(modules)],
+        cwd=str(tmp_path), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    try:
+        healthz = None
+        deadline = time.monotonic() + 90
+        while time.monotonic() < deadline and proc.poll() is None:
+            if {"TPU_PROBE", "ADDED"} <= {p.get("event_type") for _, _, p in _payloads(handler.posts)}:
+                with urllib.request.urlopen(f"http://127.0.0.1:{status_port}/healthz", timeout=5) as r:
+                    healthz = (r.status, json.loads(r.read()))
+                break
+            time.sleep(0.2)
+        assert proc.poll() is None, proc.stdout.read()[-3000:]
+        proc.send_signal(signal.SIGINT)
+        t0 = time.monotonic()
+        out, _ = proc.communicate(timeout=30)
+        stop_s = time.monotonic() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        receiver.shutdown()
+        receiver.server_close()
+    assert proc.returncode == 0, out[-3000:]
+    assert stop_s < 10.0
+    assert healthz is not None and healthz[0] == 200 and healthz[1]["alive"] is True, out[-3000:]
+    assert json.loads(modules.read_text()) == []
+    pods = [p for _, _, p in _payloads(handler.posts) if p.get("event_type") in ("ADDED", "MODIFIED", "DELETED")]
+    assert pods and all(auth == "Bearer test-key" for _, auth, _ in handler.posts)
+    assert pods[0]["name"] == "mock-tpu-pod"
+    assert "Starting k8s-watcher-tpu (PyTorch) in 'development' environment" in out

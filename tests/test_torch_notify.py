@@ -3,8 +3,11 @@ JAX package's.
 
 Both clients POST the same payloads to one local receiver, which records the
 path, the body bytes and the ``Authorization`` header of every request and
-answers with a scripted status. Both dispatchers get the same submissions at
-a small capacity.
+answers with a scripted status: per item and through the batch endpoint,
+with its per-item fallback. Both dispatchers get the same submissions at a
+small capacity: drops, coalescing under and over the watermark, and the
+egress-health verdict must match. ``tests/test_egress.py`` is replayed
+through the port.
 """
 
 import json
@@ -25,9 +28,10 @@ from k8s_watcher_tpu.notify.dispatcher import Dispatcher as RefDispatcher
 from k8s_watcher_tpu.notify.dispatcher import coalesce_key as ref_coalesce_key
 from k8s_watcher_tpu.pipeline.pipeline import Notification as RefNotification
 from k8s_watcher_tpu_torch.config import RetryPolicy, load_agent_config
-from k8s_watcher_tpu_torch.notification import Notification
+from k8s_watcher_tpu_torch.pipeline.pipeline import Notification
 from k8s_watcher_tpu_torch.notify.client import ClusterApiClient, proxy_for
 from k8s_watcher_tpu_torch.notify.dispatcher import Dispatcher, build_notifier, coalesce_key
+from test_torch_replay import replay, replayed_tests
 
 PACKAGES = {
     "ref": (RefClient, RefRetryPolicy, RefDispatcher, RefNotification),
@@ -192,8 +196,8 @@ def test_coalesce_key_matches(kind, payload):
 def _blocked_dispatch(pkg, submissions, *, capacity):
     """Submit with the single worker held inside its first send; then let it
     go, drain, stop. Returns the accept results, the drop counters and the
-    sent payloads in order. The port does not coalesce, so the reference runs
-    with ``coalesce=False``."""
+    sent payloads in order. Both run with ``coalesce=False``: the drops
+    alone (coalescing has its own tests)."""
     _, _, dispatcher_cls, notification_cls = PACKAGES[pkg]
     gate, first = threading.Event(), threading.Event()
     sent = []
@@ -204,8 +208,7 @@ def _blocked_dispatch(pkg, submissions, *, capacity):
         sent.append(payload)
         return True
 
-    kwargs = {"coalesce": False} if pkg == "ref" else {}
-    dispatcher = dispatcher_cls(send, capacity=capacity, workers=1, **kwargs)
+    dispatcher = dispatcher_cls(send, capacity=capacity, workers=1, coalesce=False)
     accepted = [dispatcher.submit(notification_cls({"seq": -1}, time.monotonic(), kind="probe"))]
     assert first.wait(10)  # the worker holds the first notification
     for kind, payload in submissions:
@@ -265,3 +268,171 @@ def test_stop_abandons_a_hung_target_alike():
         results[pkg] = dispatcher.metrics.counter("dispatch_abandoned_shutdown").value
         assert elapsed < 3.0, pkg
     assert results["port"] == results["ref"] == 3
+
+
+# -- the batch endpoint, coalescing and egress health ---------------------------
+
+
+class _BatchHandler(_Handler):
+    """The receiver with a batch route: ``script`` statuses apply to it too;
+    ``results`` (when set) is answered as the batch verdict list."""
+
+    def do_POST(self):  # noqa: N802
+        body = self.rfile.read(int(self.headers.get("Content-Length", 0)))
+        with self.server.lock:
+            self.server.requests.append((self.path, body, self.headers.get("Authorization")))
+            status = self.server.script.pop(0) if self.server.script else 200
+            results = self.server.results
+        data = b""
+        if status == 200 and self.path.endswith("update_batch") and results is not None:
+            data = json.dumps({"results": results}).encode()
+        self.send_response(status)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+
+@pytest.fixture
+def batch_receiver():
+    server = ThreadingHTTPServer(("127.0.0.1", 0), _BatchHandler)
+    server.daemon_threads = True
+    server.lock = threading.Lock()
+    server.requests, server.script, server.results = [], [], None
+    threading.Thread(target=server.serve_forever, kwargs={"poll_interval": 0.05}, daemon=True).start()
+    server.url = f"http://127.0.0.1:{server.server_address[1]}"
+    yield server
+    server.shutdown()
+    server.server_close()
+
+
+def pod_payloads(seed, n=5):
+    rng = np.random.default_rng(seed)
+    return [{"uid": f"u{int(rng.integers(100))}", "name": f"pød-{i}", "namespace": "production",
+             "phase": str(rng.choice(["Running", "Failed"])), "event_type": "MODIFIED",
+             "slice_info": {"key": "production/js", "worker_index": i}} for i in range(n)]
+
+
+@pytest.mark.parametrize("script, results, outcome", [
+    ([], None, "all"),                       # 200 without verdicts: all accepted
+    ([], [True, False, True, True, False], "list"),
+    ([], [True, True], "short"),             # short verdict list: the tail failed
+    ([404], None, "fallback"),               # no batch route: latched, per item
+    ([405], None, "fallback"),
+    ([501, 501, 501], None, "failed"),       # a 5xx on every attempt: all failed
+    ([503, 200], None, "all"),               # a retried 5xx that recovers
+    ([400], None, "fallback"),               # a gateway refusing the route
+    ([429, 200], None, "all"),
+])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_batch_endpoint_and_fallback_match(batch_receiver, seed, script, results, outcome):
+    seen = {}
+    for pkg in ("ref", "port"):
+        batch_receiver.requests.clear()
+        batch_receiver.script[:] = list(script)
+        batch_receiver.results = results
+        client = make_client(pkg, batch_receiver.url + "/base")
+        first = client.update_pod_statuses(pod_payloads(seed))
+        second = client.update_pod_statuses(pod_payloads(seed + 10, 2))  # latched or not
+        seen[pkg] = (first, second, list(batch_receiver.requests), client._batch_unsupported)
+    assert seen["port"] == seen["ref"]
+    first, second, requests, latched = seen["port"]
+    assert requests[0][0] == "/base/api/pods/update_batch"
+    assert json.loads(requests[0][1]) == {"updates": pod_payloads(seed)}
+    if outcome == "fallback":
+        assert first is None and second is None and latched
+    elif outcome == "failed":
+        assert first == [False] * 5
+    elif outcome == "short":
+        assert first == [True, True, False, False, False]
+    else:
+        assert first is not None and len(first) == 5
+
+
+def _coalescing_run(pkg, submissions, *, watermark, capacity, batch):
+    """One worker held in its first send while ``submissions`` queue; then
+    released. Returns what was delivered, in order, and the counters."""
+    _, _, dispatcher_cls, notification_cls = PACKAGES[pkg]
+    gate, first = threading.Event(), threading.Event()
+    delivered, batches = [], []
+
+    def send(payload):
+        first.set()
+        gate.wait(10)
+        delivered.append(payload)
+        return True
+
+    def send_batch(payloads):
+        batches.append(len(payloads))
+        delivered.extend(payloads)
+        return [True] * len(payloads)
+
+    dispatcher = dispatcher_cls(send, capacity=capacity, workers=1, coalesce=True, coalesce_watermark=watermark,
+                                send_batch=send_batch if batch else None, batch_max=batch or 16)
+    dispatcher.submit(notification_cls({"uid": "first", "seq": -1}, time.monotonic(), kind="pod"))
+    assert first.wait(10)
+    for kind, payload in submissions:
+        dispatcher.submit(notification_cls(payload, time.monotonic(), kind=kind))
+    gate.set()
+    assert dispatcher.drain(10)
+    dispatcher.stop()
+    counters = {k: v["count"] for k, v in dispatcher.metrics.dump().items() if "count" in v and "p50_ms" not in v}
+    return delivered, batches, counters
+
+
+@pytest.mark.parametrize("watermark", [0, 3, 8, 64])
+@pytest.mark.parametrize("batch", [0, 4])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_coalescing_under_and_over_the_watermark_match(seed, watermark, batch):
+    rng = np.random.default_rng(seed)
+    submissions = []
+    for i in range(40):
+        roll = rng.random()
+        if roll < 0.7:
+            submissions.append(("pod", {"uid": f"u{int(rng.integers(5))}", "seq": i}))
+        elif roll < 0.9:
+            submissions.append(("slice", {"slice": f"s{int(rng.integers(2))}", "seq": i}))
+        else:
+            submissions.append(("probe", {"seq": i}))
+    want = _coalescing_run("ref", submissions, watermark=watermark, capacity=24, batch=batch)
+    got = _coalescing_run("port", submissions, watermark=watermark, capacity=24, batch=batch)
+    assert got == want
+    delivered, _, counters = got
+    # whatever collapsed, each key's last state arrives last
+    for key in {p["uid"] for k, p in submissions if k == "pod"}:
+        last = [p for k, p in submissions if k == "pod" and p["uid"] == key][-1]
+        assert [p for p in delivered if p.get("uid") == key][-1] == last
+    if watermark == 0:
+        assert counters.get("dispatch_coalesced", 0) > 0
+
+
+@pytest.mark.parametrize("case", ["idle", "started", "stalled", "dead", "stopping"])
+def test_egress_health_matches(case):
+    out = {}
+    for pkg in ("ref", "port"):
+        _, _, dispatcher_cls, notification_cls = PACKAGES[pkg]
+        release = threading.Event()
+        dispatcher = dispatcher_cls(lambda p, r=release: r.wait(5) or True, capacity=16, workers=2)
+        if case != "idle":
+            dispatcher.start()
+        if case == "stalled":
+            for i in range(4):
+                dispatcher.submit(notification_cls({"uid": f"u{i}"}, time.monotonic(), kind="pod"))
+            time.sleep(0.3)
+        if case == "dead":
+            dispatcher._abandon.set()  # every worker exits at its next turn
+            for t in dispatcher._threads:
+                t.join(5)
+        if case == "stopping":
+            dispatcher._stopping.set()
+        health = dispatcher.egress_health(0.1)
+        release.set()
+        dispatcher.stop(drain_timeout=2.0)
+        for lane in health["stalled_lanes"]:
+            lane.pop("stalled_seconds")
+        out[pkg] = health
+    assert out["port"] == out["ref"]
+
+
+# the reference's egress scenarios (per-key order, counter accounting,
+# adaptive coalescing, micro-batching, drain, batch fallback) through the port
+globals().update(replayed_tests(replay("test_egress.py", keep=("k8s_watcher_tpu.k8s.mock_server",))))

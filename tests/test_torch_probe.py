@@ -31,7 +31,7 @@ from k8s_watcher_tpu.probe.trend import TrendTracker as RefTrendTracker
 from k8s_watcher_tpu_torch import carry, probe_agent
 from k8s_watcher_tpu_torch.config import ConfigError, TpuConfig, load_config
 from k8s_watcher_tpu_torch.faults.ici import IciFaultSpec, apply_fault
-from k8s_watcher_tpu_torch.notification import Notification
+from k8s_watcher_tpu_torch.pipeline.pipeline import Notification
 from k8s_watcher_tpu_torch.parallel import collectives
 from k8s_watcher_tpu_torch.parallel.mesh import host_chip_mesh, rank_grid
 from k8s_watcher_tpu_torch.probe import device

@@ -109,9 +109,11 @@ def test_open_routes_match(servers, route):
 
 
 def test_watcher_routes_are_not_served(servers):
-    # /debug/events and the like belong to the watcher's status server
-    status, body, _ = _get(servers[1], "/debug/events")
-    assert status == 404 and body == {"error": "no route /debug/events"}
+    # the agent wires none of the watcher's planes: each route answers the
+    # reference's 404 naming its config key
+    for route in ("/debug/events", "/debug/trace", "/debug/slices", "/debug/checkpoint"):
+        ref, port = (_get(p, route) for p in servers)
+        assert port == ref and port[0] == 404, route
 
 
 def test_prometheus_on_accept_header_matches(servers):
