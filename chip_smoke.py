@@ -30,16 +30,27 @@ Phases, each fatal on failure (exit code 1, no result line):
    kernel launched, one POSTed probe payload per cycle, the status routes
    answering, no node patched, and the stop within 10 s;
 9. the watcher: ``python -m k8s_watcher_tpu_torch production``'s
-   ``WatcherApp`` (unported planes off, GPU backend, 1 s probe interval)
-   against a seeded cluster of 2,048 GPU nodes and 50,000 pods that the
-   script serves on 127.0.0.1 (paged LIST, then 60,000 watch events); what
-   it POSTs must equal a plain fold of the same events under the
-   ``production`` rules, the churn must drain without loss, at least 3
-   in-process probe cycles must run healthy with every kernel launched, the
-   status routes must answer, the stop must take under 10 s and leave a
-   checkpoint of the last resourceVersion and every live pod, and a second
-   app started from that checkpoint must POST a DELETED for each pod deleted
-   while it was down. ``--seed N`` picks another cluster (default 0).
+   ``WatcherApp`` (the serving and analytics planes on; history, health and
+   SLO off; GPU backend, 1 s probe interval) against a seeded cluster of
+   2,048 GPU nodes and 50,000 pods that the script serves on 127.0.0.1
+   (paged LIST, then 60,000 watch events); what it POSTs must equal a plain
+   fold of the same events under the ``production`` rules, the churn must
+   drain without loss, at least 3 in-process probe cycles must run healthy
+   with every kernel launched, the status routes must answer, the stop must
+   take under 10 s and leave a checkpoint of the last resourceVersion and
+   every live pod, and a second app started from that checkpoint must POST a
+   DELETED for each pod deleted while it was down. Beside it: 64 ``?watch=1``
+   streams read by a child process fold to ``GET /serve/fleet`` (one of them
+   cut and resumed mid-churn), the snapshot equals a plain fold of the
+   events, every ``/serve/analytics`` body (a summary every 0.5 s, a
+   32-scenario what-if) equals the plain reference and the numpy backend,
+   and the probe readings taken while analytics requests ran stay within
+   20% of phase 4's. ``--seed N`` picks another cluster (default 0);
+10. analytics at fleet scale: a ``FleetView`` of 16,384 JobSets of 8 GPU
+   workers (131,072 pods over 3 clusters and 16,384 nodes), where
+   ``summary()`` and a 32-scenario ``evaluate()`` on the card, on the numpy
+   backend and through the plain reference must agree; with their times, the
+   segment sums' CUDA-event time and the share of the host-to-device copies.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -48,9 +59,12 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import http.client
 import json
 import os
+import random
+import select
 import socket
 import statistics
 import subprocess
@@ -191,6 +205,12 @@ T0 = "2026-10-01T00:00:00Z"
 CHURN_DRAIN_LIMIT_S = 120.0
 WATCHER_PROBE_CYCLES = 3
 LIST_PAGE = 500
+SUBSCRIBERS = 64
+ANALYTICS_EVERY_S = 0.5
+SCENARIOS = 32
+# a probe reading taken while an analytics request ran may differ from the
+# quiet card's (phase 4) by at most this share
+READING_TOLERANCE = 0.20
 
 
 def _pod_status(phase: str, ready: bool, restarts: int, host_ip: str, pod_ip: str, image: str) -> dict:
@@ -464,6 +484,355 @@ def fold_production(facts, namespaces=WATCHED_NAMESPACES):
     return last, transitions
 
 
+def fold_view(steps, namespaces=WATCHED_NAMESPACES):
+    """The plain reference of the serving plane's pod objects over ``steps``
+    in watch order: every event past the namespace and GPU resource filters
+    (whatever the critical gate says) upserts the pod's compact object, a
+    DELETED drops it. Returns ``{uid: object}``."""
+    pods = {}
+    for kind, spec, phase, ready, restarts, rv in steps:
+        if (namespaces and spec.namespace not in namespaces) or not spec.gpus:
+            continue
+        if kind == "DELETED":
+            pods.pop(spec.uid, None)
+        else:
+            pods[spec.uid] = {"kind": "pod", "key": spec.uid, "name": spec.name, "namespace": spec.namespace,
+                              "phase": phase, "ready": ready, "node": spec.spec["nodeName"],
+                              "pod_resource_version": str(rv)}
+    return pods
+
+
+def model_digest(model: dict) -> str:
+    """The digest of a ``{(kind, key): object}`` fold, the same in the
+    subscriber child."""
+    return hashlib.sha256(json.dumps(sorted([k[0], k[1], o] for k, o in model.items()), sort_keys=True)
+                          .encode()).hexdigest()
+
+
+# The subscriber child: one snapshot, then ``n`` ?watch=1 streams from its rv,
+# read with one selector and folded each into its own model, gaps and
+# duplicates counted. Commands on stdin: "cut" closes stream 0 and resumes it
+# with its token; "finish R" records each stream's (rv, digest) once its token
+# reaches R, prints the result and exits.
+SUBSCRIBER_CHILD = r"""
+import hashlib, http.client, json, os, selectors, socket, sys, time
+
+port, token, n = int(sys.argv[1]), sys.argv[2], int(sys.argv[3])
+
+
+def digest(model):
+    return hashlib.sha256(json.dumps(sorted([k[0], k[1], o] for k, o in model.items()), sort_keys=True)
+                          .encode()).hexdigest()
+
+
+conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+conn.request("GET", "/serve/fleet", headers={"Authorization": "Bearer " + token})
+snap = json.loads(conn.getresponse().read())
+conn.close()
+view = snap["view"]
+sel = selectors.DefaultSelector()
+
+
+class Stream:
+    def __init__(self, rv, model):
+        self.rv, self.model = rv, model
+        self.frames = self.deltas = self.gaps = self.dups = self.compacted = self.gone = 0
+        self.sanction_to = -1
+        self.at = None
+        self.connect()
+
+    def connect(self):
+        self.sock = socket.create_connection(("127.0.0.1", port))
+        self.sock.sendall(("GET /serve/fleet?watch=1&rv=%d&view=%s&timeout=300 HTTP/1.1\r\nHost: smoke\r\n"
+                           "Authorization: Bearer %s\r\n\r\n" % (self.rv, view, token)).encode())
+        self.sock.setblocking(False)
+        self.buf, self.status, self.first_sync, self.open = b"", None, None, True
+        sel.register(self.sock, selectors.EVENT_READ, self)
+
+    def close(self):
+        if self.open:
+            sel.unregister(self.sock)
+            self.sock.close()
+            self.open = False
+
+    def feed(self, data):
+        self.buf += data
+        if self.status is None:
+            head, sep, rest = self.buf.partition(b"\r\n\r\n")
+            if not sep:
+                return
+            self.status, self.buf = int(head.split(b" ", 2)[1]), rest
+        while self.status == 200:
+            line, sep, rest = self.buf.partition(b"\r\n")
+            if not sep:
+                return
+            size = int(line, 16)
+            if size == 0 or len(rest) < size + 2:
+                return
+            self.frame(json.loads(rest[:size]))
+            self.buf = rest[size + 2:]
+
+    def frame(self, f):
+        self.frames += 1
+        kind = f["type"]
+        if kind == "SYNC":
+            if self.first_sync is None:
+                self.first_sync = f["rv"]
+            self.gaps += f["rv"] != self.rv
+        elif kind == "COMPACTED":
+            self.compacted += 1
+            self.sanction_to = f["to_rv"]
+        elif kind == "GONE":
+            self.gone += 1
+        else:
+            rv = f["rv"]
+            if rv <= self.rv:
+                self.dups += 1
+                return
+            self.gaps += rv != self.rv + 1 and rv > self.sanction_to
+            if kind == "DELETE":
+                self.model.pop((f["kind"], f["key"]), None)
+            else:
+                self.model[(f["kind"], f["key"])] = f["object"]
+            self.rv = rv
+            self.deltas += 1
+
+
+base = {(o["kind"], o["key"]): o for o in snap["objects"]}
+streams = [Stream(snap["rv"], dict(base)) for _ in range(n)]
+print(json.dumps({"ready": True, "rv": snap["rv"], "view": view}), flush=True)
+sel.register(0, selectors.EVENT_READ, None)
+target, deadline, resumed, pending = None, None, None, b""
+while True:
+    for key, _ in sel.select(0.2):
+        if key.data is None:
+            data = os.read(0, 4096)
+            if not data:
+                sys.exit(1)
+            pending += data
+            while b"\n" in pending:
+                cmd, pending = pending.split(b"\n", 1)
+                words = cmd.decode().split()
+                if words[0] == "cut":
+                    s0 = streams[0]
+                    s0.close()
+                    resumed = {"from_rv": s0.rv, "deltas_before": s0.deltas}
+                    s0.connect()
+                elif words[0] == "finish":
+                    target, deadline = int(words[1]), time.monotonic() + 60
+            continue
+        stream = key.data
+        try:
+            data = stream.sock.recv(1 << 20)
+        except BlockingIOError:
+            continue
+        except OSError:
+            data = b""
+        if data:
+            stream.feed(data)
+        else:
+            stream.close()
+    if target is None:
+        continue
+    for stream in streams:
+        if stream.at is None and stream.rv >= target:
+            stream.at = (stream.rv, digest(stream.model))
+    if all(s.at is not None for s in streams) or time.monotonic() > deadline:
+        break
+if resumed is not None:
+    s0 = streams[0]
+    resumed.update(status=s0.status, first_sync=s0.first_sync, deltas_after=s0.deltas - resumed["deltas_before"])
+print(json.dumps({"resumed": resumed, "streams": [
+    {"at": s.at, "status": s.status, "open": s.open, "frames": s.frames, "deltas": s.deltas, "gaps": s.gaps,
+     "dups": s.dups, "compacted": s.compacted, "gone": s.gone} for s in streams]}), flush=True)
+"""
+
+
+class Subscribers:
+    """Phase 9's ``SUBSCRIBERS`` watch streams, read in a child process so
+    that they do not share the watcher's interpreter."""
+
+    def __init__(self, port: int, token: str, n: int):
+        self.proc = subprocess.Popen([sys.executable, "-c", SUBSCRIBER_CHILD, str(port), token, str(n)],
+                                     stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        self.ready = self._line(60)
+
+    def _line(self, timeout_s: float) -> dict:
+        ready, _, _ = select.select([self.proc.stdout], [], [], timeout_s)
+        line = self.proc.stdout.readline() if ready else ""
+        if not line:
+            self.close()
+            fail(f"the subscriber child gave no answer within {timeout_s} s (exit {self.proc.poll()})")
+        return json.loads(line)
+
+    def send(self, command: str) -> None:
+        self.proc.stdin.write(command + "\n")
+        self.proc.stdin.flush()
+
+    def finish(self, rv: int) -> dict:
+        self.send(f"finish {rv}")
+        result = self._line(90)
+        self.close()
+        return result
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+class AnalyticsPoller(threading.Thread):
+    """One ``GET /serve/analytics`` summary every ``ANALYTICS_EVERY_S``;
+    each call is kept as ``(start, end, status, body)``."""
+
+    def __init__(self, port: int, token: str):
+        super().__init__(name="analytics-poller", daemon=True)
+        self.port, self.token = port, token
+        self.calls = []
+        self.halt = threading.Event()
+
+    def run(self) -> None:
+        while not self.halt.is_set():
+            t0 = time.monotonic()
+            try:
+                status, body = http_get(self.port, "/serve/analytics", self.token)
+            except OSError as exc:  # a failed request is a finding, checked later
+                status, body = None, repr(exc)
+            self.calls.append((t0, time.monotonic(), status, body))
+            self.halt.wait(max(0.0, ANALYTICS_EVERY_S - (time.monotonic() - t0)))
+
+
+def states_at(deltas, rvs) -> dict:
+    """``{rv: {(kind, key): object}}``: the view's state at each wanted rv,
+    folded once from a journal that starts at rv 1."""
+    wanted, out, state, i = sorted(set(rvs)), {}, {}, 0
+    for d in deltas:
+        while i < len(wanted) and wanted[i] < d.rv:
+            out[wanted[i]] = dict(state)
+            i += 1
+        if d.object is None:
+            state.pop((d.kind, d.key), None)
+        else:
+            state[(d.kind, d.key)] = d.object
+    for rv in wanted[i:]:
+        out[rv] = dict(state)
+    return out
+
+
+def tables_of(state: dict) -> dict:
+    tables = {}
+    for (kind, _key), obj in state.items():
+        tables.setdefault(kind, []).append(obj)
+    return tables
+
+
+def numpy_plane(objects, config):
+    """An analytics plane on the numpy backend over a fresh view of
+    ``objects`` (``(kind, key) -> object``)."""
+    from k8s_watcher_tpu_torch.analytics import AnalyticsPlane
+    from k8s_watcher_tpu_torch.serve import FleetView
+
+    view = FleetView(compact_horizon=1 << 20)
+    view.apply_batch([(kind, key, obj) for (kind, key), obj in objects.items()])
+    return AnalyticsPlane(dataclasses.replace(config, backend="numpy"), view)
+
+
+def comparable(body: dict) -> dict:
+    """A response body without the fields that name the run (rv, backend),
+    as JSON would carry it."""
+    return json.loads(json.dumps({k: v for k, v in body.items() if k not in ("rv", "backend")}))
+
+
+def draw_scenarios(rng, nodes, n: int = SCENARIOS) -> list:
+    """baseline, a drain of the local cluster, and ``n - 2`` cordons of 1-16
+    nodes drawn with ``rng``."""
+    out = [{"kind": "baseline"}, {"kind": "drain_cluster", "cluster": ""}]
+    for _ in range(n - len(out)):
+        out.append({"kind": "cordon_nodes", "nodes": rng.sample(nodes, rng.randint(1, 16))})
+    return out
+
+
+def analytics_timings(torch, view, raw, config, dev, *, reference_calls: int = 5) -> dict:
+    """``summary()`` and a ``raw``-scenario ``evaluate()`` over ``view`` on the
+    card, on the numpy backend and through the plain reference: all three
+    must agree. Returns each one's median ms over warm calls, the CUDA-event
+    ms of the host-to-device copies and of the segment sums alone, and the
+    copies' share of a request."""
+    import numpy as np
+
+    from k8s_watcher_tpu_torch.analytics import (
+        AnalyticsPlane,
+        Scenario,
+        build_masks,
+        parse_scenarios,
+        python_reference_verdicts,
+    )
+
+    card = AnalyticsPlane(dataclasses.replace(config, backend="auto"), view, device=dev)
+    plain = AnalyticsPlane(dataclasses.replace(config, backend="numpy"), view)
+    rv, tables = view.snapshot_tables()
+    scenarios = parse_scenarios(raw, max_scenarios=config.max_scenarios)
+
+    def median_ms(fn, calls=5, warm=True):
+        if warm:
+            fn()
+        times = []
+        for _ in range(calls):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return statistics.median(times), out
+
+    out = {}
+    for shape, on_card, on_host, reference in (
+            ("summary", card.summary, plain.summary,
+             lambda: python_reference_verdicts(tables, [Scenario("baseline")])),
+            ("evaluate", lambda: card.evaluate(raw), lambda: plain.evaluate(raw),
+             lambda: python_reference_verdicts(tables, scenarios))):
+        card_ms, card_body = median_ms(on_card)
+        numpy_ms, numpy_body = median_ms(on_host)
+        ref_ms, ref_body = median_ms(reference, reference_calls, warm=False)  # plain Python: nothing to warm
+        if card_body["rv"] != rv or card_body["backend"] != "torch" or not card_body["crosscheck"]["ok"]:
+            fail(f"analytics {shape} on the card: rv {card_body['rv']} (view {rv}), {card_body['backend']}, "
+                 f"{card_body['crosscheck']}")
+        if comparable(card_body) != comparable(numpy_body):
+            fail(f"analytics {shape}: the card and the numpy backend disagree")
+        got = card_body["fleet"] if shape == "summary" else {k: card_body[k] for k in ("baseline", "scenarios")}
+        want = ref_body["baseline"] if shape == "summary" else ref_body
+        if json.loads(json.dumps(got)) != json.loads(json.dumps(want)):
+            fail(f"analytics {shape}: the card and the plain reference disagree")
+        out[shape] = {"card_ms": card_ms, "numpy_ms": numpy_ms, "reference_ms": ref_ms,
+                      "reference_calls": reference_calls}
+    # the what-if's copies and segment sums alone, on the backend's stream
+    _, cols = view.fleet_columns()
+    b, n = card.backend, cols.n_slices
+    masks = build_masks(cols, scenarios).astype(np.int32)
+    copies, sums = [], []
+    for _ in range(6):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with b.launch():
+            marks[0].record(b.stream)
+            m, ws = b.asarray(masks), b.segment_ids(cols.w_slice, n)
+            wu, wc = b.asarray(cols.w_up), b.asarray(cols.w_chips)
+            marks[1].record(b.stream)
+            up_after = m * wu.unsqueeze(0)
+            up_chips = up_after * wc.unsqueeze(0)
+            marks[2].record(b.stream)
+            b.segment_sum(up_after, ws, n)
+            b.segment_sum(up_chips, ws, n)
+            marks[3].record(b.stream)
+        b.stream.synchronize()
+        copies.append(marks[0].elapsed_time(marks[1]))
+        sums.append(marks[2].elapsed_time(marks[3]))
+    out["whatif_device"] = {
+        "scenarios": len(scenarios), "workers": int(cols.n_workers), "slices": int(n),
+        "h2d_bytes": int(masks.nbytes + 8 * cols.n_workers + 4 * 2 * cols.n_workers),
+        "h2d_ms": statistics.median(copies[1:]), "segment_sums_ms": statistics.median(sums[1:]),
+        "h2d_share_of_evaluate": statistics.median(copies[1:]) / out["evaluate"]["card_ms"],
+    }
+    return out
+
+
 class ClusterStub:
     """The apiserver side of phase 9: ``GET /version``, the node list, the pod
     LIST in ``limit`` pages with ``continue`` tokens (each list a snapshot of
@@ -669,9 +1038,10 @@ class GcPauses:
 
 def watcher_config(config_dir: str, receiver_url: str, apiserver_url: str, workdir: str, *, probe_interval: float):
     """The ``production`` environment as the port's ``load_app_config`` loads
-    it, with the planes the port does not carry switched off, the GPU
-    backend, and the watcher pointed at local servers and a temporary
-    checkpoint."""
+    it, with the planes the port does not carry switched off (history,
+    health, SLO, leader election, the node watch), the serving plane on a
+    free port, the GPU backend, and the watcher pointed at local servers and
+    a temporary checkpoint."""
     from k8s_watcher_tpu_torch.config import load_app_config
 
     kubeconfig = os.path.join(workdir, "kubeconfig")
@@ -687,10 +1057,9 @@ def watcher_config(config_dir: str, receiver_url: str, apiserver_url: str, workd
         "WATCHER_STATUS_TOKEN": STATUS_TOKEN,
         "WATCHER_CHECKPOINT_PATH": os.path.join(workdir, "checkpoint.json"),
     })
-    off = {name: dataclasses.replace(getattr(config, name), enabled=False)
-           for name in ("serve", "history", "analytics", "health", "slo")}
+    off = {name: dataclasses.replace(getattr(config, name), enabled=False) for name in ("history", "health", "slo")}
     return dataclasses.replace(
-        config, **off,
+        config, **off, serve=dataclasses.replace(config.serve, port=free_port()),
         watcher=dataclasses.replace(
             config.watcher, status_port=free_port(),
             leader_election=dataclasses.replace(config.watcher.leader_election, enabled=False)),
@@ -709,14 +1078,20 @@ def wait_until(predicate, timeout_s: float, poll_s: float = 0.05) -> bool:
     return True
 
 
-def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: int, **sizes) -> dict:
+def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: int, quiet: dict, **sizes) -> dict:
     """Phase 9: ``python -m k8s_watcher_tpu_torch production``'s ``WatcherApp``
     on the card against a seeded cluster of 2,048 GPU nodes and 50,000 pods
-    served by ``ClusterStub``, through 60,000 watch events of churn, then a
-    restart from its checkpoint (``sizes`` override ``GpuCluster``'s). Every
-    check is fatal. Returns the kernel launches of the watcher's run."""
+    served by ``ClusterStub``, through 60,000 watch events of churn, with
+    ``SUBSCRIBERS`` watch streams and analytics requests beside it, then a
+    restart from its checkpoint (``sizes`` override ``GpuCluster``'s).
+    ``quiet`` holds phase 4's readings. Every check is fatal. Returns the
+    kernel launches of the watcher's run."""
+    import torch
+
+    from k8s_watcher_tpu_torch.analytics import parse_scenarios, python_reference_verdicts
     from k8s_watcher_tpu_torch.app import WatcherApp
     from k8s_watcher_tpu_torch.kernels import build
+    from k8s_watcher_tpu_torch.serve import FleetView
     from k8s_watcher_tpu_torch.state.checkpoint import CheckpointStore
 
     t_phase = time.monotonic()
@@ -781,11 +1156,27 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
     build.reset_launch_counts()
     t_start = time.monotonic()
     runner.start()
+    serve_port = app.config.serve.port
+    if not wait_until(
+            lambda: errors or app.serve.server is not None and http_get(serve_port, "/serve/healthz")[0] == 200, 30):
+        fail(f"the serving plane did not answer on :{serve_port} within 30 s")
+    if errors:
+        fail(f"the watcher raised: {errors[0]!r}")
+    subscribers = Subscribers(serve_port, STATUS_TOKEN, SUBSCRIBERS)
+    poller = AnalyticsPoller(serve_port, STATUS_TOKEN)
+    poller.start()
+    streams_before_churn = stub.churn_t0 is None
     if not wait_until(lambda: stub.churn_t0 is not None or errors or not runner.is_alive(), 120):
         fail("the watcher's LIST did not reach the watch within 120 s")
     list_s, list_pages = stub.churn_t0 - t_start if stub.churn_t0 else None, stub.list_pages
     m = app.metrics
     gpu_churn = sum(1 for kind, spec, *_ in cluster.churn if spec.gpus)
+    # cut one stream mid-churn; the child resumes it with its token
+    wait_until(lambda: errors or m.counter("events_received").value >= len(cluster.initial) + gpu_churn // 2,
+               CHURN_DRAIN_LIMIT_S)
+    cut_at = {"events_received": m.counter("events_received").value, "view_rv": app.serve.view.rv,
+              "s_after_churn_start": time.monotonic() - stub.churn_t0}
+    subscribers.send("cut")
     drained = wait_until(
         lambda: errors or (stub.churn_done.is_set() and source.resource_version == str(cluster.last_rv)
                            and m.counter("events_received").value >= len(cluster.initial) + gpu_churn
@@ -805,8 +1196,28 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
     if not wait_until(lambda: sum(1 for c in cycles if c["end"] > stub.churn_t0) >= WATCHER_PROBE_CYCLES, 60):
         fail(f"{sum(1 for c in cycles if c['end'] > stub.churn_t0)} probe cycles ran during and after the churn "
              f"in 60 s, want {WATCHER_PROBE_CYCLES}")
+    # the what-if: baseline, a drain of the local cluster, 30 cordons
+    nodes = sorted({spec.spec["nodeName"] for _, spec, *_ in cluster.initial if spec.gpus})
+    raw = draw_scenarios(random.Random(seed), nodes)
+    whatif_path = "/serve/analytics?scenarios=" + urllib.parse.quote(json.dumps(raw))
+    whatifs = []
+    for _ in range(4):
+        t0 = time.monotonic()
+        whatifs.append((t0, *http_get(serve_port, whatif_path, STATUS_TOKEN), time.monotonic()))
+        time.sleep(0.3)
+    too_many = http_get(serve_port, "/serve/analytics?scenarios=" + urllib.parse.quote(
+        json.dumps(raw + [{"kind": "baseline"}])), STATUS_TOKEN)
+    if not wait_until(lambda: sum(1 for c in cycles if c["end"] > whatifs[0][0]) >= 2, 30):
+        fail("fewer than 2 probe cycles ran after the what-if requests began")
+    poller.halt.set()
+    poller.join(10)
+    snapshot_status, snapshot = http_get(serve_port, "/serve/fleet", STATUS_TOKEN)
+    serve_health = http_get(serve_port, "/serve/healthz")
+    streams = subscribers.finish(snapshot["rv"])
+    journal = app.serve.view.read_since(0, max_deltas=1 << 30)
     port = app.config.watcher.status_port
-    routes = {r: http_get(port, r, STATUS_TOKEN) for r in ("/healthz", "/debug/slices", "/metrics")}
+    routes = {r: http_get(port, r, STATUS_TOKEN) for r in ("/healthz", "/debug/slices", "/metrics",
+                                                           "/debug/freshness")}
     t_stop = time.monotonic()
     app.stop()
     runner.join(60)
@@ -824,6 +1235,21 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
     latency = m.histogram("event_to_notify_latency").summary()
     print("watcher run: " + json.dumps({
         "list_s": list_s, "list_pages": list_pages, "churn_s": churn_s, "churn_watch_events": churn_events,
+        "serve": {"view_rv": snapshot["rv"], "objects": len(snapshot["objects"]),
+                  "deltas_published": m.counter("serve_deltas_published").value,
+                  "frame_encodes": m.counter("serve_frame_encodes").value,
+                  "streams_opened_before_churn": streams_before_churn, "cut_at": cut_at,
+                  "resumed": streams["resumed"],
+                  "stream_frames": sum(st["frames"] for st in streams["streams"]),
+                  "compacted_batches": sum(st["compacted"] for st in streams["streams"]),
+                  "publish": m.histogram("serve_publish_seconds").summary(),
+                  "delta_lag": m.histogram("serve_delta_lag_seconds").summary()},
+        "analytics": {"summaries": len(poller.calls),
+                      "summary_ms": [1e3 * (t1 - t0) for t0, t1, _, _ in poller.calls],
+                      "whatif_ms": [1e3 * (t1 - t0) for t0, _, _, t1 in whatifs],
+                      "requests": m.counter("analytics_requests").value,
+                      "kernel": m.histogram("analytics_kernel_seconds").summary(),
+                      "encode": m.histogram("analytics_encode_seconds").summary()},
         "pipeline_events_per_s": churn_events / churn_s if churn_s > 0 else None,
         "event_to_notify_latency": latency,
         "item_posts": receivers[0].item_posts, "batch_posts": receivers[0].batch_posts,
@@ -903,7 +1329,103 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
         fail(f"checkpoint: rv {checkpoint.resource_version()} (stub {cluster.last_rv}), known_pods "
              f"{len(known)} vs {len(live)} live ({len(known ^ live)} differ)")
 
-    # 6. deletions while down, then a restart from the checkpoint
+    # 6. the serving plane: the snapshot against the plain fold, every stream
+    # against the view at its rv, the resumed stream
+    if snapshot_status != 200 or serve_health[0] != 200 or not serve_health[1].get("healthy"):
+        fail(f"/serve/fleet {snapshot_status}, /serve/healthz {serve_health}")
+    serve_fold = health.get("serve") or {}
+    if not serve_fold.get("healthy") or not serve_fold.get("started") or serve_fold.get("io_loop", {}).get(
+            "threads") != app.config.serve.io_threads:
+        fail(f"/healthz carries no healthy serve fold: {serve_fold}")
+    if routes["/debug/freshness"][0] != 200:
+        fail(f"/debug/freshness: {routes['/debug/freshness']}")
+    objects = {(o["kind"], o["key"]): o for o in snapshot["objects"]}
+    pods = {key: o for (kind, key), o in objects.items() if kind == "pod"}
+    want_pods = fold_view(cluster.initial + cluster.churn)
+    if pods != want_pods:
+        wrong = sorted(set(pods) ^ set(want_pods)) or sorted(k for k in pods if pods[k] != want_pods[k])
+        fail(f"the snapshot's pods differ from fold_view ({len(pods)} vs {len(want_pods)}): {wrong[:5]}")
+    slices_view = {key: o for (kind, key), o in objects.items() if kind == "slice"}
+    if {k: o["phase"] for k, o in slices_view.items()} != {k: t[-1][1] for k, t in transitions.items()}:
+        fail(f"the snapshot's {len(slices_view)} slices differ from the fold's {len(transitions)} last phases")
+    probe_objects = [o for (kind, _), o in objects.items() if kind == "probe"]
+    if len(probe_objects) != 1 or not probe_objects[0].get("healthy"):
+        fail(f"the snapshot's probe verdicts: {probe_objects}")
+    if journal.status != "ok" or journal.compacted or not len(journal.deltas) == journal.to_rv >= snapshot["rv"]:
+        fail(f"the view's journal does not reach back to rv 0: {journal.status}, {len(journal.deltas)} deltas "
+             f"to rv {journal.to_rv}")
+    by_rv = states_at(journal.deltas, [snapshot["rv"]] + [st["at"][0] for st in streams["streams"] if st["at"]])
+    if model_digest(by_rv[snapshot["rv"]]) != model_digest(objects):
+        fail("the view's journal does not fold to its own snapshot")
+    for i, st in enumerate(streams["streams"]):
+        if (st["status"] != 200 or not st["open"] or st["gaps"] or st["dups"] or st["gone"] or not st["at"]
+                or st["at"][1] != model_digest(by_rv[st["at"][0]])):
+            fail(f"watch stream {i} does not fold to the view: {st}")
+    resumed = streams["resumed"] or {}
+    if resumed.get("status") != 200 or resumed.get("first_sync") != resumed.get("from_rv") or \
+            resumed.get("deltas_after", 0) <= 0:
+        fail(f"the cut stream did not resume with its token: {resumed}")
+    # 7. analytics: every body against the numpy backend and the plain
+    # reference over the view at the body's rv
+    bodies = [(body, None) for _, _, status, body in poller.calls] + [(body, raw) for _, status, body, _ in whatifs]
+    statuses = [c[2] for c in poller.calls] + [w[1] for w in whatifs]
+    if len(poller.calls) < 4 or any(st != 200 for st in statuses):
+        fail(f"{len(poller.calls)} analytics summaries, statuses {sorted(set(map(str, statuses)))}: "
+             f"{[c[3] for c in poller.calls if c[2] != 200][:2]}")
+    if too_many[0] != 400 or "max_scenarios" not in too_many[1].get("error", ""):
+        fail(f"a request of {len(raw) + 1} scenarios: {too_many}")
+    states = states_at(journal.deltas, [body["rv"] for body, _ in bodies])
+    references = {}
+    for body, scenarios in bodies:
+        if body["backend"] != "torch" or not body["crosscheck"]["ok"]:
+            fail(f"analytics body at rv {body['rv']}: backend {body['backend']}, {body['crosscheck']}")
+        key = (body["rv"], scenarios is not None)
+        if key not in references:
+            state = states[body["rv"]]
+            plain = numpy_plane(state, app.config.analytics)
+            tables = tables_of(state)
+            if scenarios is None:
+                references[key] = (comparable(plain.summary()), comparable(
+                    {"fleet": python_reference_verdicts(tables, parse_scenarios([{"kind": "baseline"}],
+                                                                                max_scenarios=1))["baseline"]}))
+            else:
+                references[key] = (comparable(plain.evaluate(scenarios)), comparable(python_reference_verdicts(
+                    tables, parse_scenarios(scenarios, max_scenarios=len(scenarios)))))
+        on_numpy, on_reference = references[key]
+        got = comparable(body)
+        if got != on_numpy or {k: got[k] for k in on_reference} != on_reference:
+            fail(f"analytics body at rv {body['rv']} ({'what-if' if scenarios else 'summary'}) differs from "
+                 f"the numpy backend or the plain reference")
+    if m.counter("analytics_crosscheck_failures").value:
+        fail(f"analytics_crosscheck_failures {m.counter('analytics_crosscheck_failures').value}")
+    # 8. the probe's readings while analytics requests ran
+    requests_at = [(t0, t1) for t0, t1, _, _ in poller.calls] + [(t0, t1) for t0, _, _, t1 in whatifs]
+    overlapping = [c for c in cycles
+                   if any(t0 < c["end"] and t1 > c["end"] - c["duration_ms"] / 1e3 for t0, t1 in requests_at)]
+    if not overlapping:
+        fail("no probe cycle ran while an analytics request did")
+    for c in overlapping:
+        for reading in ("mxu_tflops", "hbm_read_gbps", "hbm_write_gbps"):
+            if c[reading] is None or abs(c[reading] - quiet[reading]) > READING_TOLERANCE * quiet[reading]:
+                fail(f"{reading} {c[reading]} while analytics ran, phase 4 read {quiet[reading]} "
+                     f"(tolerance {READING_TOLERANCE:.0%})")
+    print("watcher serve and analytics: " + json.dumps({
+        "snapshot_rv": snapshot["rv"], "pods": len(pods), "slices": len(slices_view),
+        "streams_folded": len(streams["streams"]), "stream_rvs": sorted({st["at"][0] for st in streams["streams"]}),
+        "analytics_bodies_checked": len(bodies), "distinct_rvs": len(references),
+        "cycles_beside_analytics": len(overlapping),
+        "readings_beside_analytics": [{k: c[k] for k in ("mxu_tflops", "hbm_read_gbps", "hbm_write_gbps")}
+                                      for c in overlapping],
+        "quiet": quiet, "device": name, "power_limit": power_limit,
+    }))
+    # analytics at this size: the card against numpy and the plain reference
+    sized = FleetView(compact_horizon=1 << 20)
+    sized.apply_batch([(kind, key, obj) for (kind, key), obj in objects.items()])
+    print("watcher analytics timings: " + json.dumps({
+        **analytics_timings(torch, sized, raw, app.config.analytics, dev), "device": name,
+        "power_limit": power_limit}))
+
+    # 9. deletions while down, then a restart from the checkpoint
     stub.delete_while_down([uid for _, _, uid in cluster.down_deletions])
     app2, runner2, errors2 = run_app(configs[1])
     t_restart = time.monotonic()
@@ -934,6 +1456,69 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
         restart_s, "phase_s": time.monotonic() - t_phase, "device": name, "power_limit": power_limit,
     }))
     return launches
+
+
+def fleet_scale_view(seed: int, *, jobsets: int = 16384, workers: int = 8, nodes: int = 16384,
+                     clusters=("", "cluster-b", "cluster-c"), down_share: float = 1 / 16):
+    """Phase 10's fleet, built straight into a ``FleetView`` (no ingest):
+    ``jobsets`` JobSets of ``workers`` GPU workers each, JobSet ``j`` in
+    ``clusters[j % 3]`` (keys prefixed with the cluster's name, as a
+    federator holds them) on ``workers`` distinct seeded nodes of ``nodes``,
+    and ``down_share`` of all workers not up (Pending), drawn with ``seed``.
+    Returns the view and the node names."""
+    from k8s_watcher_tpu_torch.serve import FleetView
+
+    rng = random.Random(seed)
+    total = jobsets * workers
+    down = set(rng.sample(range(total), int(total * down_share)))
+    node_names = [f"gpu-node-{i:05d}" for i in range(nodes)]
+    view = FleetView()
+    items = []
+    for j in range(jobsets):
+        cluster = clusters[j % len(clusters)]
+        prefix, tag = (f"{cluster}/", {"cluster": cluster}) if cluster else ("", {})
+        jobset = f"train-{j:05d}"
+        members = []
+        for w, node in enumerate(rng.sample(node_names, workers)):
+            i = j * workers + w
+            up = i not in down
+            name, uid = f"{jobset}-workers-0-{w}", f"{prefix}uid-{i:06d}"
+            phase = "Running" if up else "Pending"
+            items.append(("pod", uid, {"kind": "pod", "key": uid, "name": name, "namespace": "production",
+                                       "phase": phase, "ready": up, "node": node, "pod_resource_version": str(i + 1),
+                                       **tag}))
+            members.append({"name": name, "worker_index": w, "phase": phase, "ready": up, "restarts": 0,
+                            "node": node, "node_ready": True})
+        key = f"{prefix}production/{jobset}/workers"
+        ready = sum(1 for m in members if m["ready"])
+        items.append(("slice", key, {"kind": "slice", "key": key, "slice": key, "namespace": "production",
+                                     "name": jobset, "chips_per_worker": 8, "total_chips": 8 * workers,
+                                     "expected_workers": None, "observed_workers": workers, "ready_workers": ready,
+                                     "phase": "Ready" if ready == workers else "Degraded", "workers": members,
+                                     **tag}))
+        if len(items) >= 8192:
+            view.apply_batch(items)
+            items = []
+    view.apply_batch(items)
+    return view, node_names
+
+
+def analytics_phase(torch, dev, name: str, power_limit: str, seed: int, config) -> None:
+    """Phase 10: analytics over ``fleet_scale_view`` on the card, on the
+    numpy backend and through the plain reference (which must agree), with
+    their times. The plain reference takes seconds per 32-scenario call, so
+    it is timed over one call to keep the phase within 30 s."""
+    t0 = time.monotonic()
+    view, nodes = fleet_scale_view(seed)
+    _, cols = view.fleet_columns()
+    built_s = time.monotonic() - t0
+    raw = draw_scenarios(random.Random(seed + 10), nodes)
+    timings = analytics_timings(torch, view, raw, config, dev, reference_calls=1)
+    print("fleet analytics: " + json.dumps({
+        "jobsets": int(cols.n_slices), "workers": int(cols.n_workers), "pods": int(cols.n_pods),
+        "clusters": len(cols.clusters), "nodes": len(nodes), "workers_up": int(cols.w_up.sum()),
+        "build_s": built_s, **timings, "phase_s": time.monotonic() - t0, "device": name, "power_limit": power_limit,
+    }))
 
 
 def main() -> int:
@@ -1296,10 +1881,18 @@ def main() -> int:
 
     # 9. the watcher on the card: list+watch, pipeline, slices, notify, probe
     seed = int(sys.argv[sys.argv.index("--seed") + 1]) if "--seed" in sys.argv else 0
-    watcher_launches = watcher_phase(dev, name, power_limit, [c["duration_ms"] for c in cycles], seed)
+    quiet = {"mxu_tflops": mxu["tflops_median"], "hbm_read_gbps": hbm["read_gbps"],
+             "hbm_write_gbps": hbm_w["write_gbps"]}
+    watcher_launches = watcher_phase(dev, name, power_limit, [c["duration_ms"] for c in cycles], seed, quiet)
     for kernel in kernels:
         if watcher_launches[kernel["name"]] <= 0:
             fail(f"kernel {kernel['name']} was not launched by the watcher's run")
+
+    # 10. analytics at the size of a federator's global fleet
+    from k8s_watcher_tpu_torch.config import load_app_config
+
+    analytics_phase(torch, dev, name, power_limit, seed,
+                    load_app_config("production", os.path.join(REPO, "config"), env={}).analytics)
 
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()

@@ -6,7 +6,10 @@ runs each batch through the event pipeline (namespace filter, resource
 filter, critical gate, phase tracker, slice tracker, payload extraction),
 hands the notifications to the keyed egress lanes, checkpoints the journaled
 state, serves the status routes, and runs the in-process probe agent on this
-rank's GPU when ``tpu.probe.enabled`` is set.
+rank's GPU when ``tpu.probe.enabled`` is set. With ``serve.enabled`` the
+pipeline and the notification sink fold into the serving plane's fleet view
+(``/serve/fleet``), and ``analytics.enabled`` answers ``/serve/analytics``
+with kernels on this rank's GPU.
 
 Planes the port does not carry yet are refused, never skipped: a config that
 enables one makes the constructor raise ``ConfigError`` naming the key.
@@ -36,11 +39,9 @@ logger = logging.getLogger(__name__)
 #: (config key, whether the config enables it) for every plane of the JAX
 #: package's WatcherApp that the port does not carry yet
 UNPORTED_PLANES: Tuple[Tuple[str, Callable[[AppConfig], bool]], ...] = (
-    ("serve.enabled", lambda c: c.serve.enabled),
     ("history.enabled", lambda c: c.history.enabled),
     ("federation.enabled", lambda c: c.federation.enabled),
     ("relay.enabled", lambda c: c.relay.enabled),
-    ("analytics.enabled", lambda c: c.analytics.enabled),
     ("health.enabled", lambda c: c.health.enabled),
     ("slo.enabled", lambda c: c.slo.enabled),
     ("watcher.leader_election.enabled", lambda c: c.watcher.leader_election.enabled),
@@ -153,10 +154,10 @@ class WatcherApp:
         device: Any = None,
         expected_platform: Optional[str] = "auto",
     ):
-        """``device``/``expected_platform`` go to the in-process probe agent:
-        by default it runs on this rank's GPU and raises here when there is
-        none; ``device="cpu"`` runs it on the CPU (held to the ``cpu``
-        platform when ``expected_platform="cpu"``)."""
+        """``device`` is where the in-process probe agent and the analytics
+        plane run: by default this rank's GPU, and they raise here when there
+        is none; ``device="cpu"`` runs them on the CPU. ``expected_platform``
+        goes to the probe agent (``"cpu"`` holds it to the CPU platform)."""
         refuse_unported_planes(config)
         self.config = config
         self.metrics = metrics or MetricsRegistry()
@@ -194,6 +195,30 @@ class WatcherApp:
                 metrics=self.metrics,
             )
         self.status_server: Optional[StatusServer] = None
+        # the fleet-state serving plane: the view exists from construction
+        # (the pipeline publishes into it); its HTTP server and broadcast
+        # loops start in run() with the other servers
+        self.serve = None
+        if config.serve.enabled:
+            from k8s_watcher_tpu_torch.serve import ServePlane
+
+            self.serve = ServePlane(
+                config.serve,
+                metrics=self.metrics,
+                # the status plane's bearer: no unauthenticated side door
+                auth_token=config.watcher.status_auth_token,
+            )
+            if self.tracer is not None:
+                self.serve.attach_trace(self.tracer.ring)
+        # the analytics plane: the view's columns, kernels on ``device``,
+        # /serve/analytics; passive (refreshed per request), attached before
+        # the serve plane starts
+        self.analytics = None
+        if config.analytics.enabled:
+            from k8s_watcher_tpu_torch.analytics import AnalyticsPlane
+
+            self.analytics = AnalyticsPlane(config.analytics, self.serve.view, metrics=self.metrics, device=device)
+            self.serve.attach_analytics(self.analytics)
         c = config.clusterapi
         self.dispatcher = Dispatcher(
             self.notifier.update_pod_status,
@@ -212,6 +237,13 @@ class WatcherApp:
             batch_max=c.batch_max,
             tracer=self.tracer,
             audit=self.audit,
+        )
+        # the sink every producer uses: with the serving plane on, slice
+        # aggregates and probe verdicts fold into the view on their way to
+        # the dispatcher (pods reach it through the pipeline's publish hook,
+        # which also sees the events the critical gate keeps from notifying)
+        self._notify_sink = (
+            self.serve.wrap_sink(self.dispatcher.submit) if self.serve is not None else self.dispatcher.submit
         )
         self.source = source or build_source(
             config, self.checkpoint, self.liveness.beat, self.metrics, self.tracer
@@ -243,7 +275,7 @@ class WatcherApp:
             self.slice_tracker.restore(self.checkpoint.get("slices", {}) or {})
         self.pipeline = EventPipeline(
             environment=config.environment,
-            sink=self.dispatcher.submit,
+            sink=self._notify_sink,
             namespace_filter=NamespaceFilter(config.watcher.namespaces),
             resource_filter=TpuResourceFilter(config.tpu.resource_key),
             critical_gate=CriticalEventGate(config.environment, config.watcher.critical_events_only),
@@ -252,6 +284,7 @@ class WatcherApp:
             metrics=self.metrics,
             audit=self.audit,
             tracer=self.tracer,
+            view=self.serve.view if self.serve is not None else None,
             resource_key=config.tpu.resource_key,
             topology_label=config.tpu.topology_label,
             accelerator_label=config.tpu.accelerator_label,
@@ -270,7 +303,7 @@ class WatcherApp:
             self._probe_agent = ProbeAgent(
                 config.tpu,
                 environment=config.environment,
-                sink=self.dispatcher.submit,
+                sink=self._notify_sink,
                 metrics=self.metrics,
                 device=device,
                 expected_platform=expected_platform,
@@ -282,6 +315,9 @@ class WatcherApp:
     def run(self) -> None:
         """Blocking steady-state loop, until ``stop()`` or the ingest ends."""
         self.dispatcher.start()
+        if self.serve is not None:
+            # before the status server, so /healthz folds a started plane
+            self.serve.start()
         if self.config.watcher.status_port:
             agent = self._probe_agent
             trend = agent.trend.snapshot if agent is not None and agent.trend is not None else None
@@ -301,6 +337,10 @@ class WatcherApp:
                 # /healthz covers the egress side too: all workers dead, or a
                 # wedged lane past the stall threshold, turns it 503
                 egress=lambda: self.dispatcher.egress_health(stall_after),
+                # ... and the serving plane: a dead serve thread or broadcast
+                # loop silently starves every subscriber
+                serve=self.serve.health if self.serve is not None else None,
+                freshness=self._freshness_snapshot if self.serve is not None else None,
                 slices=self.slice_tracker.debug_snapshot,
                 checkpoint=self.checkpoint.stats if self.checkpoint is not None else None,
                 trend=trend,
@@ -314,7 +354,9 @@ class WatcherApp:
                 ", /debug/trend" if trend is not None else ""
             ) + (", /debug/probes" if agent is not None else "") + (
                 ", /debug/remediation" if remediation_state is not None else ""
-            ) + (", /debug/checkpoint" if self.checkpoint is not None else "")
+            ) + (", /debug/checkpoint" if self.checkpoint is not None else "") + (
+                ", /debug/freshness" if self.serve is not None else ""
+            )
             logger.info("Status endpoint on :%d (%s)", self.status_server.port, routes)
         if self.notifier.health_check():
             logger.info("ClusterAPI health check passed")
@@ -399,6 +441,15 @@ class WatcherApp:
             if known is not None:
                 self.checkpoint.put("known_pods", known, changed_keys=changed)
 
+    def _freshness_snapshot(self) -> dict:
+        """The ``/debug/freshness`` body: the local view's watermark and the
+        watch-to-local-view histogram."""
+        out = {"local": self.serve.view.freshness()}
+        local_hist = self.metrics.histogram("watch_to_local_view_seconds")
+        if local_hist.count:
+            out["local"]["watch_to_local_view_seconds"] = local_hist.summary()
+        return out
+
     def stop(self) -> None:
         self._stop.set()
         self.ingest.stop()  # stops the shard streams (incl. self.source)
@@ -408,6 +459,8 @@ class WatcherApp:
         if self.status_server is not None:
             self.status_server.stop()
             self.status_server = None
+        if self.serve is not None:
+            self.serve.stop()
         joined = True
         if self._probe_agent is not None:
             joined = self._probe_agent.stop()

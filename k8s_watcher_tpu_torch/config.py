@@ -1325,21 +1325,21 @@ class HealthConfig:
 
 
 #: accepted analytics.backend values: the JAX package's vocabulary, so both
-#: packages load the same files (the port carries no analytics plane yet)
+#: packages load the same files (in the port ``auto`` and ``jax`` both mean
+#: torch on the rank's device)
 VALID_ANALYTICS_BACKENDS = ("auto", "jax", "numpy")
 
 
 @dataclasses.dataclass(frozen=True)
 class AnalyticsConfig:
     """The ``analytics:`` section — the fleet analytics and what-if engine
-    of the JAX package (``analytics/``, not yet ported): the FleetView
-    encoded into dense integer columns and batched placement what-ifs at
-    ``GET /serve/analytics``. Requires ``serve.enabled`` (the columns are
-    the serving plane's view). See ARCHITECTURE.md "Analytics plane".
+    (``analytics/``): the FleetView encoded into dense integer columns and
+    batched placement what-ifs at ``GET /serve/analytics``. Requires
+    ``serve.enabled`` (the columns are the serving plane's view).
     """
 
     enabled: bool = False
-    # array substrate of the JAX package: auto | jax | numpy
+    # auto | jax: torch on the rank's device; numpy: the host
     backend: str = "auto"
     # per-request scenario cap for /serve/analytics?scenarios= (400 past
     # it) — one request's mask matrix is [scenarios x workers]

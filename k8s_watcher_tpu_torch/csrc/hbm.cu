@@ -37,7 +37,9 @@
 // device time between them. Launches and events leave in one C call, so no
 // host delay can fall between them: the probe shares its Python process with
 // the watcher's ingest threads, and a window opened from Python also timed
-// the probe thread's waits for the interpreter lock.
+// the probe thread's waits for the interpreter lock. The graph's window also
+// opens behind a gate (see k8w_time_graph), since a sub-millisecond graph
+// would otherwise time its own submission.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -181,6 +183,20 @@ blocksum_kernel(const float4* __restrict__ x, float* __restrict__ out) {
 static_assert(WRITE_BLOCK_VECS % (BLOCKSUM_UNROLL * BLOCKSUM_THREADS) == 0,
               "blocksum loop assumes whole unrolled strides per block");
 
+constexpr unsigned long long GATE_LIMIT_NS = 50ull * 1000 * 1000;  // 50 ms
+
+// Spins until the host sets *open (host-mapped memory), or GATE_LIMIT_NS
+// pass on the device clock: the gate of k8w_time_graph.
+__global__ void gate_kernel(const volatile int* open) {
+    unsigned long long t0, t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t0));
+    do {
+        if (*open) return;
+        __nanosleep(1000);
+        asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    } while (t - t0 < GATE_LIMIT_NS);
+}
+
 // The optional device-time window of one entry point (`ms` null: untimed).
 struct Window {
     cudaEvent_t start = nullptr;
@@ -199,11 +215,12 @@ struct Window {
         return e;
     }
 
-    // after the launches: their error first, else the window's
-    cudaError_t close(float* ms, cudaStream_t s) {
+    // after the launches: their error first, else the window's (`recorded`:
+    // the caller already recorded the end event)
+    cudaError_t close(float* ms, cudaStream_t s, bool recorded = false) {
         cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess || !ms) return e;
-        e = cudaEventRecord(end, s);
+        if (!recorded) e = cudaEventRecord(end, s);
         if (e == cudaSuccess) e = cudaEventSynchronize(end);
         if (e == cudaSuccess) e = cudaEventElapsedTime(ms, start, end);
         return e;
@@ -239,13 +256,28 @@ int k8w_hbm_fill(const float* seed, float* out, long long n_elems, int repeats, 
 }
 
 // One launch of an instantiated CUDA graph, timed (elapsed_ms required).
+// The window opens behind a gate: a one-thread kernel holds the stream until
+// the host has queued the start event, the graph and the end event (or
+// GATE_LIMIT_NS pass), so the window times the graph and not the host's
+// submission of it, which stretches when the host's cores are contended.
 int k8w_time_graph(void* graph_exec, void* stream, float* elapsed_ms) {
+    static thread_local int* gate = nullptr;  // host-mapped flag, one per timing thread
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    Window w;
-    cudaError_t e = w.open(elapsed_ms, s);
-    if (e == cudaSuccess) e = cudaGraphLaunch(static_cast<cudaGraphExec_t>(graph_exec), s);
+    cudaError_t e = cudaSuccess;
+    if (!gate) e = cudaHostAlloc(reinterpret_cast<void**>(&gate), sizeof(int), cudaHostAllocMapped);
+    int* gate_dev = nullptr;
+    if (e == cudaSuccess) e = cudaHostGetDevicePointer(reinterpret_cast<void**>(&gate_dev), gate, 0);
     if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(w.close(elapsed_ms, s));
+    __atomic_store_n(gate, 0, __ATOMIC_SEQ_CST);
+    gate_kernel<<<1, 1, 0, s>>>(gate_dev);
+    Window w;
+    e = cudaGetLastError();
+    if (e == cudaSuccess) e = w.open(elapsed_ms, s);
+    if (e == cudaSuccess) e = cudaGraphLaunch(static_cast<cudaGraphExec_t>(graph_exec), s);
+    if (e == cudaSuccess && elapsed_ms) e = cudaEventRecord(w.end, s);
+    __atomic_store_n(gate, 1, __ATOMIC_SEQ_CST);  // open the gate on every path
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(w.close(elapsed_ms, s, /*recorded=*/true));
 }
 
 // x: num_blocks write blocks of 512 x 256 f32; out: num_blocks f32.

@@ -1,12 +1,14 @@
 """The metrics the probe agent, the dispatcher and the actuator record, and
 their exposition.
 
-The unlabelled half of the JAX package's ``metrics.MetricsRegistry``, with the
-same names, meanings and output: counters with a one-minute rate, gauges
+The JAX package's ``metrics.MetricsRegistry`` with the same names, meanings
+and output: counters with a one-minute rate, gauges
 (``set``/``set_max``/``clear``), latency histograms on the same log-spaced
 buckets (40 per decade, 10 us .. 100 s), the JSON ``dump()`` and the
-Prometheus text exposition ``prometheus_text()``. Labelled series are not
-carried: nothing the agent records uses them.
+Prometheus text exposition ``prometheus_text()``. Of the labelled series only
+counter children are carried (``counter.labels(codec="json")``: the serving
+plane's per-codec snapshot-cache counters), rendered as the JAX package
+renders them.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import bisect
 import collections
 import math
+import re
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -26,9 +29,24 @@ def _log_buckets(lo: float, hi: float, per_decade: int = 40) -> List[float]:
     return [lo * 10 ** (i / per_decade) for i in range(n)]
 
 
+#: per-family cap on distinct label sets: labels are for bounded dimensions
+#: (codec names), never identifiers
+MAX_LABEL_SETS = 64
+_LABEL_NAME_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
+
+
+def render_labels(labelset: Tuple[Tuple[str, str], ...]) -> str:
+    """``(("codec", "json"),)`` -> ``{codec="json"}`` (Prometheus escaping)."""
+    def esc(v: str) -> str:
+        return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+    return "{" + ",".join(f'{k}="{esc(v)}"' for k, v in labelset) + "}" if labelset else ""
+
+
 class Counter:
     """Monotonic counter with a one-minute rate kept in per-second buckets
-    (O(1) per ``inc``, O(window) memory)."""
+    (O(1) per ``inc``, O(window) memory). ``labels(codec="json")`` returns the
+    child counter of that label set; the parent keeps the cross-label total."""
 
     _BUCKETS = 62  # 60 one-second buckets, +2 for edge churn
 
@@ -38,6 +56,37 @@ class Counter:
         self._count = 0
         # (whole_second, count) per bucket, oldest first
         self._window: collections.deque = collections.deque(maxlen=self._BUCKETS)
+        self.labelset: Tuple[Tuple[str, str], ...] = ()
+        self._children: Dict[Tuple[Tuple[str, str], ...], "Counter"] = {}
+
+    def labels(self, **labels) -> "Counter":
+        if not labels:
+            raise ValueError("labels() requires at least one label")
+        key = []
+        for name in sorted(labels):
+            value = labels[name]
+            if not _LABEL_NAME_RE.match(name):
+                raise ValueError(f"invalid metric label name {name!r}")
+            if not isinstance(value, (str, int, float, bool)) or len(str(value)) > 128:
+                raise ValueError(f"metric label {name}={value!r}: want a short str/int/float/bool")
+            key.append((name, str(value)))
+        key = tuple(key)
+        with self._lock:
+            child = self._children.get(key)
+            if child is None:
+                if self.labelset:
+                    raise ValueError(f"labels() on an already-labelled series {self.name}{render_labels(self.labelset)}")
+                if len(self._children) >= MAX_LABEL_SETS:
+                    raise ValueError(f"metric {self.name}: more than {MAX_LABEL_SETS} label sets")
+                child = Counter(self.name)
+                child.labelset = key
+                self._children[key] = child
+            return child
+
+    def children(self) -> List["Counter"]:
+        """Child series sorted by label set (the exposition order)."""
+        with self._lock:
+            return [self._children[k] for k in sorted(self._children)]
 
     def inc(self, n: int = 1) -> None:
         sec = int(time.monotonic())
@@ -238,7 +287,13 @@ class MetricsRegistry:
         for name, c in counters:
             metric = f"{prefix}{name}"
             lines.append(f"# TYPE {metric}_total counter")
-            lines.append(f"{metric}_total {c.value}")
+            children = c.children()
+            # a labelled family's parent renders only when it carries the
+            # cross-label total, never as a misleading 0
+            if not children or c.value > 0:
+                lines.append(f"{metric}_total {c.value}")
+            for child in children:
+                lines.append(f"{metric}_total{render_labels(child.labelset)} {child.value}")
         for name, g in gauges:
             reading = g.read()
             if reading is None:
@@ -264,6 +319,12 @@ class MetricsRegistry:
         out: Dict[str, Dict] = {}
         for name, c in counters:
             out[name] = {"count": c.value, "per_minute": c.rate_per_minute()}
+            children = c.children()
+            if children:
+                out[name]["series"] = [
+                    {"labels": dict(ch.labelset), "count": ch.value, "per_minute": ch.rate_per_minute()}
+                    for ch in children
+                ]
         for name, h in histograms:
             out[name] = h.summary()
         for name, g in gauges:

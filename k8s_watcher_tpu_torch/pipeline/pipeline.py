@@ -30,6 +30,12 @@ from k8s_watcher_tpu_torch.watch.source import EventType, WatchEvent
 
 logger = logging.getLogger(__name__)
 
+#: drop reasons meaning the event never entered the fleet-state view (not a
+#: pod event, not a watched namespace, not an accelerator pod). Shared with
+#: serve/view.py ``publish_batch``; these journeys do not ride the serve
+#: publish, so their end stamp does not include it.
+NEVER_IN_VIEW = frozenset({"bookmark", "error_event", "namespace_filter", "resource_filter"})
+
 
 class Notification(NamedTuple):
     """A payload bound for the notifier, carrying the receive stamp so the
@@ -74,6 +80,7 @@ class EventPipeline:
         metrics: Optional[MetricsRegistry] = None,
         audit: Optional[Any] = None,  # metrics.audit.AuditRing
         tracer: Optional[Any] = None,  # trace.Tracer (stage spans + terminals)
+        view: Optional[Any] = None,  # serve.FleetView (fleet-state serving plane)
         notify_all: bool = False,
         resource_key: str = "google.com/tpu",
         topology_label: str = "cloud.google.com/gke-tpu-topology",
@@ -91,6 +98,7 @@ class EventPipeline:
         self.metrics = metrics or MetricsRegistry()
         self.audit = audit
         self.tracer = tracer
+        self.view = view
         self.notify_all = notify_all
         self.resource_key = resource_key
         self.topology_label = topology_label
@@ -136,7 +144,7 @@ class EventPipeline:
         self._batch_enter = batch_enter
         # per-event pipeline-span END stamps for journeys that die in
         # this batch: the span must close when ITS event's processing
-        # returned, not after the whole batch (an early
+        # returned, not after the whole batch + publish (an early
         # dead-end in a 128-event batch would otherwise bill ~100x its
         # real pipeline time and poison /debug/trace?slowest=pipeline)
         ends: Dict[int, float] = {}
@@ -148,6 +156,14 @@ class EventPipeline:
                 trace = event.trace
                 if trace is not None and not trace.handed_off:
                     ends[i] = monotonic()
+        if self.view is not None:
+            # serving-plane publish hook: the batch's post-filter pod state
+            # folds into the view under one lock hold, after the verdicts
+            # exist (the drop reasons say what never enters) and before the
+            # dead-end journeys below finish, so their serve_fanout span
+            # lands while the trace is open
+            self.view.publish_batch(events, results)
+        publish_end = monotonic() if (tracing and self.view is not None) else 0.0
         for i, (event, result) in enumerate(zip(events, results)):
             if tracing:
                 trace = event.trace
@@ -157,9 +173,13 @@ class EventPipeline:
                     # finish() on a worker thread the instant it owns the
                     # Notification, and finish reads the spans once. A
                     # journey that ended HERE — filtered, insignificant,
-                    # gate-suppressed — terminates with the drop reason at
-                    # its OWN processing end.
+                    # gate-suppressed — terminates with the drop reason. Its
+                    # pipeline span closes at its OWN processing end; a
+                    # journey that entered the view ends after the publish
+                    # its serve_fanout span covers.
                     own_end = ends[i]
+                    rode_publish = publish_end and result.reason not in NEVER_IN_VIEW
+                    now = publish_end if rode_publish else own_end
                     trace.add_span("queue_wait", trace.queue_enter, batch_enter)
                     trace.add_span("pipeline", batch_enter, own_end)
                     outcome = (
@@ -170,7 +190,7 @@ class EventPipeline:
                         # ended here
                         else "pod_suppressed"
                     )
-                    tracer.finish(trace, outcome, end=own_end)
+                    tracer.finish(trace, outcome, end=now)
             if record is not None and event.type != EventType.BOOKMARK:
                 pod_meta = (event.pod or {}).get("metadata") or {}
                 record(

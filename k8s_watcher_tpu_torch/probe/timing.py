@@ -51,7 +51,10 @@ def fence_baseline_ms(device: Optional[torch.device] = None, samples: int = 3) -
 def capture_graph(fn, device: torch.device):
     """``fn()`` captured into a CUDA graph: ``(graph, output)``. One run on a
     side stream first, as capture requires (the GEMM library makes its
-    handles and workspace outside the capture)."""
+    handles and workspace outside the capture). The capture is thread-local:
+    other threads of the process (the watcher's analytics requests) keep
+    allocating, copying and synchronizing their own streams meanwhile, which
+    a global capture forbids and which would invalidate it."""
     with torch.cuda.device(device):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -59,7 +62,7 @@ def capture_graph(fn, device: torch.device):
             fn()
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = fn()
     return graph, out
 

@@ -5,8 +5,9 @@
 - ``/metrics``: the registry as JSON, or Prometheus text when the client asks
   for it (``Accept: text/plain`` or ``openmetrics``, or ``?format=prometheus``);
 - ``/healthz``: 200 while the heartbeat (the watch loop's, or the probe
-  loop's) is fresh and, when the dispatcher's egress verdict is wired, the
-  egress side is moving; 503 otherwise (the liveness target);
+  loop's) is fresh and, when wired, the dispatcher's egress side is moving
+  and the serving plane's HTTP thread and broadcast loops are alive; 503
+  otherwise (the liveness target);
 - ``/debug/events?n=&uid=``: the audit ring's last pipeline decisions and
   egress outcomes;
 - ``/debug/trace?n=&uid=&slowest=``: the tracing plane's sampled journeys;
@@ -14,7 +15,9 @@
 - ``/debug/checkpoint``: the checkpoint store's stats;
 - ``/debug/trend``: the trend tracker's anchors and windows;
 - ``/debug/probes?n=``: the last ``n`` cycle summaries (400 on a bad ``n``);
-- ``/debug/remediation``: the remediation policy's state.
+- ``/debug/remediation``: the remediation policy's state;
+- ``/debug/freshness``: the serving plane's freshness watermark and the
+  watch-to-view histogram.
 
 A route whose plane is not wired answers 404 naming the config key.
 
@@ -159,6 +162,8 @@ class _StatusHandler(BaseHTTPRequestHandler):
     audit = None  # audit.AuditRing: pipeline decisions and egress outcomes
     trace = None  # trace.TraceRing: sampled journeys
     egress = None  # Callable[[], dict]: the dispatcher's egress verdict, folded into /healthz
+    serve = None  # Callable[[], dict]: the serving plane's verdict, folded into /healthz
+    freshness = None  # Callable[[], dict]: the serving plane's freshness watermark
     slices = None  # Callable[[], dict]: live slice states
     checkpoint = None  # Callable[[], dict]: checkpoint store stats
     trend = None  # Callable[[], dict]: trend anchors and windows
@@ -205,10 +210,16 @@ class _StatusHandler(BaseHTTPRequestHandler):
         elif parsed.path == "/healthz":
             watch_alive = self.liveness.alive()
             egress = self.egress() if self.egress is not None else None
-            # a watcher whose egress workers are all dead, or whose lane is
-            # wedged past the stall threshold, is as blind as one that lost
-            # its watch, and a restart can fix both
-            alive = watch_alive and (egress is None or bool(egress.get("healthy", True)))
+            serve = self.serve() if self.serve is not None else None
+            # a watcher whose egress workers are all dead, whose lane is
+            # wedged past the stall threshold, or whose serving plane stopped
+            # answering its subscribers is as blind as one that lost its
+            # watch, and a restart can fix each
+            alive = (
+                watch_alive
+                and (egress is None or bool(egress.get("healthy", True)))
+                and (serve is None or bool(serve.get("healthy", True)))
+            )
             body = {
                 "alive": alive,
                 "watch_alive": watch_alive,
@@ -216,6 +227,8 @@ class _StatusHandler(BaseHTTPRequestHandler):
             }
             if egress is not None:
                 body["egress"] = egress
+            if serve is not None:
+                body["serve"] = serve
             self._json(200 if alive else 503, body)
         elif parsed.path == "/debug/events":
             if self.audit is None:
@@ -263,6 +276,11 @@ class _StatusHandler(BaseHTTPRequestHandler):
                 self._json(200, {"remediation": None, "note": "configured but not armed (not leading yet)"})
                 return
             self._json(200, {"remediation": state})
+        elif parsed.path == "/debug/freshness":
+            if self.freshness is None:
+                self._json(404, {"error": "freshness plane not wired (serve.enabled)"})
+                return
+            self._json(200, {"freshness": self.freshness()})
         else:
             self._json(404, {"error": f"no route {self.path}"})
 
@@ -280,6 +298,8 @@ class StatusServer:
         audit=None,
         trace=None,
         egress: Optional[Callable[[], dict]] = None,
+        serve: Optional[Callable[[], dict]] = None,
+        freshness: Optional[Callable[[], dict]] = None,
         slices: Optional[Callable[[], dict]] = None,
         checkpoint: Optional[Callable[[], dict]] = None,
         trend: Optional[Callable[[], dict]] = None,
@@ -296,6 +316,8 @@ class StatusServer:
                 "audit": audit,
                 "trace": trace,
                 "egress": staticmethod(egress) if egress else None,
+                "serve": staticmethod(serve) if serve else None,
+                "freshness": staticmethod(freshness) if freshness else None,
                 "slices": staticmethod(slices) if slices else None,
                 "checkpoint": staticmethod(checkpoint) if checkpoint else None,
                 "trend": staticmethod(trend) if trend else None,

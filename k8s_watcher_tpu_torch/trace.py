@@ -240,6 +240,20 @@ class Trace:
         return out
 
 
+def wire_trace(trace: "Trace") -> Dict[str, Any]:
+    """The compact wire form of a sampled journey, the serve wire's
+    negotiated per-frame ``trace`` field (``?trace=1``): its identity and the
+    spans stamped so far, as ``[stage, start_s, end_s]`` offsets from the
+    journey's origin (``t0``; same-host monotonic differences). Built at
+    encode time, so a span stamped after the publish still rides the wire."""
+    t0 = trace.t0
+    return {
+        "id": trace.trace_id,
+        "uid": trace.uid,
+        "spans": [[stage, round(start - t0, 6), round(end - t0, 6)] for stage, start, end in list(trace.spans)],
+    }
+
+
 class TraceSampler:
     """Head-based 1-in-N sampler, deterministic by arrival index.
 

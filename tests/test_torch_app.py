@@ -13,7 +13,10 @@ Under the ``production`` rules the result must also equal
 against. The watcher's status routes answer alike with and without the
 bearer; a restart from the checkpoint synthesizes the same DELETED for pods
 deleted while down; the app with the probe on runs with ``device="cpu"``;
-and every unported plane is refused at construction.
+and every unported plane is refused at construction. With the serving and
+analytics planes on, both apps' ``/serve/fleet`` snapshots and
+``/serve/analytics`` bodies agree, and the JAX package's ``ResumeLoop``
+following the port's serve plane through the churn folds to the same state.
 """
 
 import copy
@@ -23,6 +26,7 @@ import socket
 import threading
 import time
 import urllib.error
+import urllib.parse
 import urllib.request
 from collections import Counter
 
@@ -32,6 +36,7 @@ import chip_smoke
 from conftest import CONFIG_DIR
 from k8s_watcher_tpu.app import WatcherApp as RefApp
 from k8s_watcher_tpu.config.loader import load_config as ref_load_config
+from k8s_watcher_tpu.federate.client import FleetClient, ResumeLoop, model_from_objects
 from k8s_watcher_tpu.k8s.mock_server import MockApiServer, MockCluster
 from k8s_watcher_tpu.state.checkpoint import CheckpointStore as RefStore
 from k8s_watcher_tpu_torch.app import UNPORTED_PLANES, WatcherApp
@@ -85,7 +90,9 @@ def small_cluster(seed, namespace):
                                  down_deletions=3, jobset_namespace=namespace)
 
 
-def make_config(pkg, environment, server_url, workdir, *, status_port=0, probe=False, coalesce=True):
+def make_config(pkg, environment, server_url, workdir, *, status_port=0, probe=False, coalesce=True, planes=()):
+    """``planes``: of serve and analytics, the ones to leave as the environment
+    sets them (on an ephemeral serve port); the rest are switched off."""
     workdir.mkdir(parents=True, exist_ok=True)
     kubeconfig = workdir / "kubeconfig.json"
     kubeconfig.write_text(json.dumps({
@@ -97,7 +104,9 @@ def make_config(pkg, environment, server_url, workdir, *, status_port=0, probe=F
     env = {"WATCHER_STATUS_TOKEN": TOKEN, "WATCHER_CHECKPOINT_PATH": str(workdir / "ck.json")}
     config = (ref_load_config if pkg == "ref" else load_app_config)(environment, CONFIG_DIR, env=env)
     off = {name: dataclasses.replace(getattr(config, name), enabled=False)
-           for name in ("serve", "history", "analytics", "health", "slo")}
+           for name in ("serve", "history", "analytics", "health", "slo") if name not in planes}
+    if "serve" in planes:
+        off["serve"] = dataclasses.replace(config.serve, port=0)
     tpu = dataclasses.replace(config.tpu, backend="gpu", resource_key=chip_smoke.GPU_KEY, node_watch_enabled=False,
                               probe_enabled=probe, probe_interval_seconds=0.2, probe_hbm_bytes=2 << 20,
                               probe_matmul_size=64, probe_payload_bytes=4096, probe_links_enabled=False)
@@ -388,3 +397,70 @@ def test_unported_plane_is_refused(tmp_path, key):
         config = dataclasses.replace(config, **{section: dataclasses.replace(getattr(config, section), enabled=True)})
     with pytest.raises(ConfigError, match=f"config key '{key}'.*not yet ported"):
         WatcherApp(config, notifier=Recorder())
+
+
+def test_analytics_without_a_gpu_is_refused_at_construction(tmp_path):
+    config = make_config("port", "production", "http://127.0.0.1:1", tmp_path, planes=("serve", "analytics"))
+    assert config.analytics.enabled and config.analytics.backend == "auto"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WatcherApp(config, notifier=Recorder(), source=FakeWatchSource([]))
+
+
+def _serve_get(app, route):
+    status, body = _get(app.serve.port, route, TOKEN)
+    assert status == 200, (route, status, body)
+    return body
+
+
+def _fleet(body):
+    """A snapshot's objects by (kind, key), and its rv."""
+    return body["rv"], {(o["kind"], o["key"]): o for o in body["objects"]}
+
+
+def test_serve_and_analytics_planes_answer_alike(tmp_path):
+    cluster = small_cluster(5, "production")
+    sides = {pkg: Side(pkg, cluster, "production", tmp_path, planes=("serve", "analytics"))
+             for pkg in ("ref", "port")}
+    try:
+        sides["ref"].start()
+        sides["port"].start(device="cpu")
+        for side in sides.values():
+            side.wait_synced()
+        port_app = sides["port"].app
+        assert port_app.analytics.backend.name == "torch" and port_app.analytics.backend.device.type == "cpu"
+        # the JAX package's consumer follows the port's plane through the churn
+        loop = ResumeLoop(FleetClient(f"http://127.0.0.1:{port_app.serve.port}", token=TOKEN))
+        loop.start()
+        for side in sides.values():
+            side.apply(cluster.churn[:300])
+        loop.poll(timeout=0.2)
+        for side in sides.values():
+            side.apply(cluster.churn[300:])
+        for side in sides.values():
+            side.wait_synced()
+        loop.drain()
+        snapshots = {pkg: _fleet(_serve_get(side.app, "/serve/fleet")) for pkg, side in sides.items()}
+        assert snapshots["port"] == snapshots["ref"]
+        rv, objects = snapshots["port"]
+        assert rv == loop.rv and loop.model == objects and loop.checker.clean
+        kinds = Counter(kind for kind, _ in objects)
+        assert kinds == {"slice": 16, "pod": 64}  # the GPU workers of the watched namespaces
+        summaries = {pkg: _serve_get(side.app, "/serve/analytics") for pkg, side in sides.items()}
+        scenarios = json.dumps([{"kind": "baseline"}, {"kind": "drain_cluster", "cluster": ""},
+                                {"kind": "cordon_nodes", "nodes": ["gpu-node-0003", "gpu-node-0011"]},
+                                {"kind": "cordon_nodes", "nodes": ["ghost"]}])
+        evaluations = {pkg: _serve_get(side.app, "/serve/analytics?scenarios=" + urllib.parse.quote(scenarios))
+                       for pkg, side in sides.items()}
+        health = {pkg: _get(side.app.serve.port, "/serve/healthz") for pkg, side in sides.items()}
+        stop_s = {pkg: side.stop() for pkg, side in sides.items()}
+    finally:
+        for side in sides.values():
+            side.close()
+    assert {pkg: b["backend"] for pkg, b in summaries.items()} == {"ref": "jax", "port": "torch"}
+    for bodies in (summaries, evaluations):
+        assert {k: v for k, v in bodies["port"].items() if k != "backend"} == \
+            {k: v for k, v in bodies["ref"].items() if k != "backend"}
+    assert summaries["port"]["crosscheck"]["ok"] and summaries["port"]["fleet"]["slices"] == 16
+    assert evaluations["port"]["scenarios"][1]["slices_losing_quorum"]  # draining the cluster breaks quorums
+    assert health["port"][0] == 200 and health["port"][1]["view_rv"] == rv
+    assert max(stop_s.values()) < 10.0

@@ -10,8 +10,9 @@ holds afterwards. A second test runs the entry point's loop mode as a
 process, against a local receiver, and stops it with SIGINT. A third runs
 the watcher, ``python -m k8s_watcher_tpu_torch development --cpu``, on a
 temporary config with the planes the port does not carry switched off and
-the probe on: it must notify, answer ``/healthz``, hold no JAX module, and
-exit 0 within 10 s of SIGINT.
+the probe, the serving plane and the analytics plane on: it must notify,
+answer ``/healthz``, ``/serve/fleet`` and ``/serve/analytics``, hold no JAX
+module, and exit 0 within 10 s of SIGINT.
 """
 
 import json
@@ -69,7 +70,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "kernels.build", "kernels.hbm",
                    "faults.ici", "parallel.mesh", "parallel.collectives",
                    "notify.client", "notify.dispatcher", "k8s.kubeconfig", "k8s.client",
-                   "remediate", "remediate.actuator", "remediate.policy"):
+                   "remediate", "remediate.actuator", "remediate.policy",
+                   "serve", "serve.view", "serve.columns", "serve.broadcast", "serve.server",
+                   "analytics", "analytics.encode", "analytics.backend", "analytics.kernels",
+                   "analytics.whatif", "analytics.plane"):
         assert f"k8s_watcher_tpu_torch.{module}" in result["modules"], module
 
 
@@ -171,15 +175,17 @@ def test_watcher_entry_point_runs_on_the_cpu_and_stops_on_sigint(tmp_path):
     handler = type("Receiver", (_Receiver,), {"posts": []})
     receiver = ThreadingHTTPServer(("127.0.0.1", 0), handler)
     threading.Thread(target=receiver.serve_forever, daemon=True).start()
-    status_port = _free_port()
+    status_port, serve_port = _free_port(), _free_port()
     config_dir = tmp_path / "config"
     config_dir.mkdir()
     shutil.copy(REPO / "config" / "base.yaml", config_dir / "base.yaml")
     overlay = yaml.safe_load((REPO / "config" / "development.yaml").read_text())
     overlay["clusterapi"]["base_url"] = f"http://127.0.0.1:{receiver.server_address[1]}"
     overlay["watcher"]["status_port"] = status_port
-    for plane in ("serve", "history", "analytics", "health", "slo"):
+    for plane in ("history", "health", "slo"):
         overlay.setdefault(plane, {})["enabled"] = False
+    assert overlay["serve"]["enabled"] and overlay["analytics"]["enabled"]
+    overlay["serve"]["port"] = serve_port
     overlay.setdefault("tpu", {})["probe"] = {
         "enabled": True, "interval_seconds": 0.2, "hbm_bytes": 2 << 20, "matmul_size": 64, "payload_bytes": 4096,
     }
@@ -193,12 +199,17 @@ def test_watcher_entry_point_runs_on_the_cpu_and_stops_on_sigint(tmp_path):
         cwd=str(tmp_path), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
     try:
-        healthz = None
+        healthz = fleet = analytics = None
         deadline = time.monotonic() + 90
         while time.monotonic() < deadline and proc.poll() is None:
             if {"TPU_PROBE", "ADDED"} <= {p.get("event_type") for _, _, p in _payloads(handler.posts)}:
                 with urllib.request.urlopen(f"http://127.0.0.1:{status_port}/healthz", timeout=5) as r:
                     healthz = (r.status, json.loads(r.read()))
+                with urllib.request.urlopen(f"http://127.0.0.1:{serve_port}/serve/fleet", timeout=5) as r:
+                    fleet = json.loads(r.read())
+                with urllib.request.urlopen(f"http://127.0.0.1:{serve_port}/serve/analytics?drain_cluster=",
+                                            timeout=5) as r:
+                    analytics = json.loads(r.read())
                 break
             time.sleep(0.2)
         assert proc.poll() is None, proc.stdout.read()[-3000:]
@@ -215,6 +226,12 @@ def test_watcher_entry_point_runs_on_the_cpu_and_stops_on_sigint(tmp_path):
     assert proc.returncode == 0, out[-3000:]
     assert stop_s < 10.0
     assert healthz is not None and healthz[0] == 200 and healthz[1]["alive"] is True, out[-3000:]
+    assert healthz[1]["serve"]["healthy"] is True and healthz[1]["serve"]["started"] is True
+    # the probe's verdict is live; the fake pod's lifecycle (added, then
+    # deleted) shows in the rv
+    assert "probe" in {o["kind"] for o in fleet["objects"]} and fleet["rv"] > len(fleet["objects"]), fleet
+    assert analytics["backend"] == "torch" and analytics["scenarios"][0]["scenario"] == {
+        "kind": "drain_cluster", "cluster": ""}
     assert json.loads(modules.read_text()) == []
     pods = [p for _, _, p in _payloads(handler.posts) if p.get("event_type") in ("ADDED", "MODIFIED", "DELETED")]
     assert pods and all(auth == "Bearer test-key" for _, auth, _ in handler.posts)

@@ -46,15 +46,16 @@ def replayed_tests(module: types.ModuleType, only: Optional[Iterable[str]] = Non
                    leave_out: Iterable[str] = ()) -> dict:
     """The module's test classes and functions, renamed ``TestPort<name>`` and
     ``test_port_<name>`` so their node ids say which package ran them.
-    ``only`` picks classes by name; ``leave_out`` names ``Class.method``s of
-    planes the port does not carry, which the replay drops."""
+    ``only`` picks classes by name; ``leave_out`` names the ``Class.method``s
+    and module-level ``test_`` functions of planes the port does not carry,
+    which the replay drops."""
     out = {}
     dropped: dict = {}
     for entry in leave_out:
-        cls_name, method = entry.split(".")
+        cls_name, _, method = entry.partition(".")
         dropped.setdefault(cls_name, []).append(method)
     for name, obj in vars(module).items():
-        if only is not None and name not in only:
+        if (only is not None and name not in only) or dropped.get(name) == [""]:
             continue
         if isinstance(obj, type) and name.startswith("Test"):
             if name in dropped:
