@@ -30,8 +30,9 @@ Phases, each fatal on failure (exit code 1, no result line):
    kernel launched, one POSTed probe payload per cycle, the status routes
    answering, no node patched, and the stop within 10 s;
 9. the watcher: ``python -m k8s_watcher_tpu_torch production``'s
-   ``WatcherApp`` (the serving and analytics planes on; history, health and
-   SLO off; GPU backend, 1 s probe interval) against a seeded cluster of
+   ``WatcherApp`` (the serving, analytics, history, health and SLO planes on;
+   leader election and the node watch off; GPU backend, 1 s probe interval)
+   against a seeded cluster of
    2,048 GPU nodes and 50,000 pods that the script serves on 127.0.0.1
    (paged LIST, then 60,000 watch events); what it POSTs must equal a plain
    fold of the same events under the ``production`` rules, the churn must
@@ -45,7 +46,17 @@ Phases, each fatal on failure (exit code 1, no result line):
    events, every ``/serve/analytics`` body (a summary every 0.5 s, a
    32-scenario what-if) equals the plain reference and the numpy backend,
    and the probe readings taken while analytics requests ran stay within
-   20% of phase 4's. ``--seed N`` picks another cluster (default 0);
+   20% of phase 4's. The history WAL: a ``?at=`` read at a mid-churn rv
+   equals the view's journal folded to that rv, and after the restart the
+   view is restored from the WAL and a resume token minted before the stop
+   reads deltas (no re-snapshot) that fold to the WAL's state. The health
+   plane: every probe cycle's report reaches the detector and the card's
+   node stays healthy; synthetic degraded link reports for one cluster node
+   confirm it, a TPU_HEALTH escalation reaches the receiver, and no node is
+   PATCHed (dry-run actuator). The SLO engine: ``/debug/slo`` lists every
+   objective with both burn windows, and local-propagation-p99's sample count
+   equals ``/metrics``' ``watch_to_local_view_seconds`` count. ``--seed N``
+   picks another cluster (default 0);
 10. analytics at fleet scale: a ``FleetView`` of 16,384 JobSets of 8 GPU
    workers (131,072 pods over 3 clusters and 16,384 nodes), where
    ``summary()`` and a 32-scenario ``evaluate()`` on the card, on the numpy
@@ -859,6 +870,7 @@ class ClusterStub:
         self.churn_t0 = self.churn_t1 = None
         self.churn_done = threading.Event()
         self.closing = threading.Event()
+        self.patches = []  # node PATCHes: the dry-run actuator must send none
 
     def page(self, params: dict) -> bytes:
         limit = int(params.get("limit") or 0) or len(self.objects)
@@ -955,6 +967,12 @@ class _StubHandler(BaseHTTPRequestHandler):
         else:
             self.answer(404, {"kind": "Status", "code": 404})
 
+    def do_PATCH(self):  # noqa: N802
+        self.rfile.read(int(self.headers.get("Content-Length", 0) or 0))
+        with self.stub.lock:
+            self.stub.patches.append(self.path)
+        self.answer(404, {"kind": "Status", "code": 404})
+
 
 class _ReceiverHandler(BaseHTTPRequestHandler):
     """The cluster API: every payload, per item or batched, is recorded as
@@ -1038,10 +1056,10 @@ class GcPauses:
 
 def watcher_config(config_dir: str, receiver_url: str, apiserver_url: str, workdir: str, *, probe_interval: float):
     """The ``production`` environment as the port's ``load_app_config`` loads
-    it, with the planes the port does not carry switched off (history,
-    health, SLO, leader election, the node watch), the serving plane on a
-    free port, the GPU backend, and the watcher pointed at local servers and
-    a temporary checkpoint."""
+    it, with the two planes the port does not carry switched off (leader
+    election, the node watch), the serving plane on a free port, the GPU
+    backend, and the watcher pointed at local servers, a temporary checkpoint
+    and a temporary history WAL."""
     from k8s_watcher_tpu_torch.config import load_app_config
 
     kubeconfig = os.path.join(workdir, "kubeconfig")
@@ -1056,10 +1074,12 @@ def watcher_config(config_dir: str, receiver_url: str, apiserver_url: str, workd
         "CLUSTERAPI_BASE_URL": receiver_url, "PROD_CLUSTERAPI_API_KEY": API_KEY,
         "WATCHER_STATUS_TOKEN": STATUS_TOKEN,
         "WATCHER_CHECKPOINT_PATH": os.path.join(workdir, "checkpoint.json"),
+        "WATCHER_HISTORY_DIR": os.path.join(workdir, "history"),
     })
-    off = {name: dataclasses.replace(getattr(config, name), enabled=False) for name in ("history", "health", "slo")}
+    if not (config.history.enabled and config.health.enabled and config.slo.enabled):
+        fail("the production settings no longer enable the history, health and SLO planes")
     return dataclasses.replace(
-        config, **off, serve=dataclasses.replace(config.serve, port=free_port()),
+        config, serve=dataclasses.replace(config.serve, port=free_port()),
         watcher=dataclasses.replace(
             config.watcher, status_port=free_port(),
             leader_election=dataclasses.replace(config.watcher.leader_election, enabled=False)),
@@ -1090,6 +1110,8 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
 
     from k8s_watcher_tpu_torch.analytics import parse_scenarios, python_reference_verdicts
     from k8s_watcher_tpu_torch.app import WatcherApp
+    from k8s_watcher_tpu_torch.health.synthetic import synthetic_link_report
+    from k8s_watcher_tpu_torch.history.wal import codec
     from k8s_watcher_tpu_torch.kernels import build
     from k8s_watcher_tpu_torch.serve import FleetView
     from k8s_watcher_tpu_torch.state.checkpoint import CheckpointStore
@@ -1176,6 +1198,8 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
                CHURN_DRAIN_LIMIT_S)
     cut_at = {"events_received": m.counter("events_received").value, "view_rv": app.serve.view.rv,
               "s_after_churn_start": time.monotonic() - stub.churn_t0}
+    # a resume token minted mid-churn, read again after the restart
+    token = (cut_at["view_rv"], app.serve.view.instance)
     subscribers.send("cut")
     drained = wait_until(
         lambda: errors or (stub.churn_done.is_set() and source.resource_version == str(cluster.last_rv)
@@ -1218,12 +1242,58 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
     port = app.config.watcher.status_port
     routes = {r: http_get(port, r, STATUS_TOKEN) for r in ("/healthz", "/debug/slices", "/metrics",
                                                            "/debug/freshness")}
+    # the history plane: the past at a mid-churn rv, rebuilt from the WAL
+    at_read = http_get(serve_port, f"/serve/fleet?at={token[0]}", STATUS_TOKEN)
+    # the health plane: every probe cycle's report reaches the detector
+    health_plane = app.health
+    n_cycles = len(cycles)
+    tick_s = app.config.health.tick_seconds
+    reports_seen = wait_until(lambda: health_plane.reports_observed >= n_cycles, 3 * tick_s)
+    card_node = health_plane.snapshot()["subjects"].get(f"node/{NODE_NAME}", {}).get("state", "healthy")
+    # ... then a degraded link on one node of a slice that only the synthetic
+    # reports name (the phase source scores the cluster's own nodes against
+    # their peers and confirms some of them on its own), one report a tick,
+    # until it is confirmed
+    drill_nodes = [f"drill-node-{i}" for i in range(4)]
+    degraded = drill_nodes[2]
+    drill_start_state = health_plane.snapshot()["subjects"].get(f"node/{degraded}", {}).get("state", "healthy")
+    t_drill = time.monotonic()
+    drill_reports = 0
+    for _ in range(4 * app.config.health.confirm_cycles):
+        ticks_before = health_plane.snapshot()["ticks"]
+        health_plane.observe_report(synthetic_link_report(drill_nodes, degraded_node=degraded))
+        drill_reports += 1
+        wait_until(lambda: health_plane.snapshot()["ticks"] > ticks_before, 3 * tick_s)
+        if health_plane.snapshot()["subjects"].get(f"node/{degraded}", {}).get("state") in ("confirmed", "remediating"):
+            break
+    confirm_s = time.monotonic() - t_drill
+
+    def escalations():
+        with receivers[0].lock:
+            return [p for _, p in receivers[0].payloads if p.get("event_type") == "TPU_HEALTH"
+                    and any(e.get("name") == degraded for e in p.get("escalated", ()))]
+
+    notified = wait_until(lambda: escalations(), 10.0)
+    drill_routes = {r: http_get(port, r, STATUS_TOKEN) for r in ("/healthz", "/debug/health")}
+    # the SLO engine: a tick after the drain reads the run's histograms
+    slo_ticks = app.slo.snapshot()["ticks"]
+    wait_until(lambda: app.slo.snapshot()["ticks"] >= slo_ticks + 2, 4 * app.config.slo.tick_seconds)
+    slo_route = http_get(port, "/debug/slo", STATUS_TOKEN)
+    slo_metrics = http_get(port, "/metrics", STATUS_TOKEN)
+    t0 = time.perf_counter()
+    app.metrics.sample()
+    sample_ms = 1e3 * (time.perf_counter() - t0)
     t_stop = time.monotonic()
     app.stop()
     runner.join(60)
     stop_s = time.monotonic() - t_stop
     launches = build.launch_counts()
     pauses.close()
+    final_rv = app.serve.view.rv
+    wal = app.history.stats()
+    wal_metrics = {k: m.counter(k).value for k in ("history_wal_deltas", "history_wal_records", "history_wal_bytes",
+                                                    "history_snapshots", "history_wal_fsyncs",
+                                                    "history_wal_overruns")}
     if runner.is_alive() or stop_s > STOP_LIMIT_S:
         fail(f"the watcher did not stop within {STOP_LIMIT_S} s: {stop_s:.2f} s")
     if errors:
@@ -1425,9 +1495,73 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
         **analytics_timings(torch, sized, raw, app.config.analytics, dev), "device": name,
         "power_limit": power_limit}))
 
-    # 9. deletions while down, then a restart from the checkpoint
+    # 10. the history, health and SLO planes beside the probe
+    history_summary = {
+        "codec": codec(), "wal_total_bytes": wal["total_bytes"], "segments": len(wal["segments"]),
+        "durable_rv": wal["durable_rv"], "final_view_rv": final_rv, **wal_metrics,
+        "wal_bytes_per_s_over_churn": wal_metrics["history_wal_bytes"] / churn_s if churn_s > 0 else None,
+        "write": m.histogram("history_wal_write_seconds").summary(), "stop_s": stop_s,
+    }
+    at_status, at_body = at_read
+    at_state = {(o["kind"], o["key"]): o for o in at_body.get("objects", ())} if at_status == 200 else None
+    want_at = states_at(journal.deltas, [token[0]])[token[0]]
+    if at_status != 200 or not at_body.get("historical") or model_digest(at_state) != model_digest(want_at):
+        fail(f"?at={token[0]}: {at_status}, {len(at_state or {})} objects against {len(want_at)} in the journal "
+             f"folded to that rv")
+    if wal["durable_rv"] != final_rv or wal_metrics["history_wal_overruns"] or wal["writer_alive"]:
+        fail(f"the WAL after the stop: {history_summary}")
+    serve_history = serve_fold.get("history") or {}
+    if not serve_history.get("healthy") or not serve_history.get("writer_alive"):
+        fail(f"/healthz's serve fold carries no live WAL writer: {serve_fold}")
+    health_summary = {
+        "tick_seconds": app.config.health.tick_seconds, "confirm_cycles": app.config.health.confirm_cycles,
+        "reports_observed": health_plane.reports_observed, "probe_cycles_at_check": n_cycles,
+        "card_node_state": card_node, "drill_node": degraded, "drill_start_state": drill_start_state,
+        "drill_reports": drill_reports,
+        "confirm_s": confirm_s, "escalations_received": len(escalations()), "node_patches": list(stub.patches),
+        "tick": m.histogram("health_tick_seconds").summary(), "ticks": m.counter("health_ticks").value,
+        "escalations": m.counter("health_escalations").value,
+        "confirmed_at_drill": {k: len((drill_routes["/healthz"][1].get("health") or {}).get(k, ()))
+                               for k in ("suspect", "confirmed", "remediating")},
+    }
+    if not reports_seen or card_node != "healthy":
+        fail(f"the health plane and the probe: {health_summary}")
+    if drill_start_state != "healthy" or drill_reports != app.config.health.confirm_cycles or not notified or \
+            stub.patches:
+        fail(f"the synthetic degraded node: {health_summary}")
+    (hz_status, hz), (dh_status, dh) = drill_routes["/healthz"], drill_routes["/debug/health"]
+    drill_subject = (dh.get("health") or {}).get("subjects", {}).get(f"node/{degraded}", {}) if dh_status == 200 else {}
+    if hz_status != 200 or hz.get("alive") is not True or hz.get("health", {}).get("healthy") is not False or \
+            drill_subject.get("state") not in ("confirmed", "remediating"):
+        fail(f"/healthz {hz_status} {hz.get('health')}, /debug/health {dh_status} {drill_subject}")
+    slo_status, slo_body = slo_route
+    objectives = (slo_body.get("slo") or {}).get("objectives", {}) if slo_status == 200 else {}
+    want_objectives = {o.name for o in app.config.slo.objectives}
+    local = objectives.get("local-propagation-p99", {}).get("windows", {})
+    local_count = slo_metrics[1].get("watch_to_local_view_seconds", {}).get("count")
+    slo_summary = {
+        "objectives": {name: {w: (r["windows"][w]["burn_rate"], r["windows"][w].get("observations"))
+                              for w in ("fast", "slow")} for name, r in objectives.items()},
+        "breaching": sorted(n for n, r in objectives.items() if r.get("breaching")),
+        "local_propagation_observations": local.get("slow", {}).get("observations"),
+        "metrics_count": local_count, "registry_sample_ms": sample_ms,
+        "ticks": (slo_body.get("slo") or {}).get("ticks"),
+    }
+    if set(objectives) != want_objectives or any(set(r["windows"]) != {"fast", "slow"} for r in objectives.values()):
+        fail(f"/debug/slo: {slo_status}, objectives {sorted(objectives)} against {sorted(want_objectives)}")
+    if not local_count or local.get("slow", {}).get("observations") != local_count:
+        fail(f"local-propagation-p99 read {slo_summary['local_propagation_observations']} samples, "
+             f"/metrics counts {local_count}")
+    print("watcher history, health and slo: " + json.dumps({
+        "history": history_summary, "health": health_summary, "slo": slo_summary,
+        "device": name, "power_limit": power_limit,
+    }))
+
+    # 11. deletions while down, then a restart from the checkpoint and the WAL
     stub.delete_while_down([uid for _, _, uid in cluster.down_deletions])
-    app2, runner2, errors2 = run_app(configs[1])
+    t_construct = time.monotonic()
+    app2, runner2, errors2 = run_app(configs[1])  # recovers the checkpoint and the WAL
+    construct_s = time.monotonic() - t_construct
     t_restart = time.monotonic()
     runner2.start()
     gone = {uid for _, _, uid in cluster.down_deletions}
@@ -1438,6 +1572,15 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
 
     restarted = wait_until(lambda: errors2 or tombstones() >= gone, 120)
     restart_s = time.monotonic() - t_restart
+    recovered = app2.history.recovered
+    restored = {"instance_kept": app2.serve.view.instance == token[1], "clean": recovered.clean,
+                "recovered_rv": recovered.rv, "journal": len(recovered.journal), "construct_s": construct_s}
+    port2, serve_port2 = app2.config.watcher.status_port, app2.config.serve.port
+    resumed = http_get(serve_port2, f"/serve/fleet?watch=1&once=1&timeout=1&rv={token[0]}&view={token[1]}",
+                       STATUS_TOKEN)
+    resumed_at = http_get(serve_port2, f"/serve/fleet?at={resumed[1].get('to_rv')}", STATUS_TOKEN) \
+        if resumed[0] == 200 else (None, {})
+    history_route = http_get(port2, "/debug/history", STATUS_TOKEN)
     app2.stop()
     runner2.join(60)
     stub.closing.set()
@@ -1451,9 +1594,30 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
     if not restarted or tombstones() != gone:
         fail(f"the restart POSTed DELETED for {len(tombstones() & gone)} of the {len(gone)} pods deleted while "
              f"down (and {len(tombstones() - gone)} others)")
+    if not restored["instance_kept"] or not restored["clean"] or restored["recovered_rv"] != final_rv:
+        fail(f"the view was not restored from the WAL: {restored}, rv at the stop {final_rv}")
+    status, body = resumed
+    if status != 200 or body.get("from_rv") != token[0] or not body.get("items") or body["to_rv"] <= final_rv:
+        fail(f"the token minted before the stop (rv {token[0]}) did not resume after the restart: {status} "
+             f"{ {k: v for k, v in body.items() if k != 'items'} if isinstance(body, dict) else body}")
+    folded = dict(want_at)
+    for item in body["items"]:
+        if item["type"] == "DELETE":
+            folded.pop((item["kind"], item["key"]), None)
+        else:
+            folded[(item["kind"], item["key"])] = item["object"]
+    at2_status, at2 = resumed_at
+    if at2_status != 200 or model_digest(folded) != model_digest(
+            {(o["kind"], o["key"]): o for o in at2.get("objects", ())}):
+        fail(f"the resumed deltas do not fold to the WAL's state at rv {body['to_rv']} ({at2_status})")
+    if history_route[0] != 200 or not history_route[1]["history"]["writer_alive"]:
+        fail(f"/debug/history after the restart: {history_route}")
+    restored.update({"resumed_from_rv": token[0], "resumed_to_rv": body["to_rv"], "resumed_deltas": len(body["items"]),
+                     "resumed_compacted": body["compacted"]})
     print("watcher restart: " + json.dumps({
         "deleted_while_down": len(gone), "synthesized_deleted": len(tombstones()), "restart_to_last_deleted_s":
-        restart_s, "phase_s": time.monotonic() - t_phase, "device": name, "power_limit": power_limit,
+        restart_s, "restored": restored, "phase_s": time.monotonic() - t_phase, "device": name,
+        "power_limit": power_limit,
     }))
     return launches
 

@@ -1,6 +1,7 @@
 """Fleet analytics and what-if engine (the JAX package's ``analytics/``, with a
 torch backend): the FleetView as dense integer columns, kernels on the
-rank's GPU, and batched placement what-ifs behind ``/serve/analytics``."""
+rank's GPU, and batched placement what-ifs behind ``/serve/analytics``, and the same
+what-ifs over a replayed history WAL."""
 
 from k8s_watcher_tpu_torch.analytics.backend import BACKENDS, ArrayBackend, resolve_backend
 from k8s_watcher_tpu_torch.analytics.encode import (
@@ -14,6 +15,12 @@ from k8s_watcher_tpu_torch.analytics.encode import (
 )
 from k8s_watcher_tpu_torch.analytics.kernels import FleetKernels, SliceRollup, WhatIfResult, crosscheck
 from k8s_watcher_tpu_torch.analytics.plane import AnalyticsPlane
+from k8s_watcher_tpu_torch.analytics.replay import (
+    batched_replay_verdicts,
+    comparable,
+    sequential_replay_verdicts,
+    verdicts_from_objects,
+)
 from k8s_watcher_tpu_torch.analytics.whatif import (
     SCENARIO_KINDS,
     Scenario,
@@ -40,11 +47,15 @@ __all__ = [
     "ScenarioError",
     "SliceRollup",
     "WhatIfResult",
+    "batched_replay_verdicts",
     "build_masks",
+    "comparable",
     "crosscheck",
     "evaluate_scenarios",
     "parse_scenarios",
     "python_reference_verdicts",
     "resolve_backend",
+    "sequential_replay_verdicts",
     "tables_from_objects",
+    "verdicts_from_objects",
 ]

@@ -9,7 +9,12 @@ state, serves the status routes, and runs the in-process probe agent on this
 rank's GPU when ``tpu.probe.enabled`` is set. With ``serve.enabled`` the
 pipeline and the notification sink fold into the serving plane's fleet view
 (``/serve/fleet``), and ``analytics.enabled`` answers ``/serve/analytics``
-with kernels on this rank's GPU.
+with kernels on this rank's GPU. ``history.enabled`` puts a durable WAL under
+the view (recovered before it serves, so the rv line and resume tokens
+survive a restart, and ``?at=`` reads the past); ``health.enabled`` scores
+nodes against their slice peers from the view's phases, the trace stages and
+the in-process probe's reports, escalating through the remediation actuator;
+``slo.enabled`` evaluates burn rates over the registry.
 
 Planes the port does not carry yet are refused, never skipped: a config that
 enables one makes the constructor raise ``ConfigError`` naming the key.
@@ -19,6 +24,7 @@ from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Any, Callable, Optional, Tuple
 
 from k8s_watcher_tpu_torch.config import AppConfig, ConfigError
@@ -27,7 +33,7 @@ from k8s_watcher_tpu_torch.notify.client import ClusterApiClient
 from k8s_watcher_tpu_torch.notify.dispatcher import Dispatcher, build_notifier
 from k8s_watcher_tpu_torch.pipeline.filters import CriticalEventGate, NamespaceFilter, TpuResourceFilter
 from k8s_watcher_tpu_torch.pipeline.phase import PhaseTracker
-from k8s_watcher_tpu_torch.pipeline.pipeline import EventPipeline
+from k8s_watcher_tpu_torch.pipeline.pipeline import EventPipeline, Notification
 from k8s_watcher_tpu_torch.slices.tracker import SliceTracker
 from k8s_watcher_tpu_torch.state.checkpoint import CheckpointStore
 from k8s_watcher_tpu_torch.status import Liveness, StatusServer
@@ -39,11 +45,8 @@ logger = logging.getLogger(__name__)
 #: (config key, whether the config enables it) for every plane of the JAX
 #: package's WatcherApp that the port does not carry yet
 UNPORTED_PLANES: Tuple[Tuple[str, Callable[[AppConfig], bool]], ...] = (
-    ("history.enabled", lambda c: c.history.enabled),
     ("federation.enabled", lambda c: c.federation.enabled),
     ("relay.enabled", lambda c: c.relay.enabled),
-    ("health.enabled", lambda c: c.health.enabled),
-    ("slo.enabled", lambda c: c.slo.enabled),
     ("watcher.leader_election.enabled", lambda c: c.watcher.leader_election.enabled),
     ("tpu.node_watch.enabled", lambda c: c.tpu.node_watch_enabled),
     ("ingest.processes", lambda c: c.ingest.processes > 0),
@@ -195,6 +198,25 @@ class WatcherApp:
                 metrics=self.metrics,
             )
         self.status_server: Optional[StatusServer] = None
+        # the durable history plane: recovery runs here, before the view
+        # exists, so the serving plane builds its view straight onto the
+        # previous incarnation's rv line; the journal preload is bounded by
+        # the in-memory horizon (deeper history still serves ?at= reads)
+        self.history = None
+        if config.history.enabled:
+            from k8s_watcher_tpu_torch.history import HistoryStore
+
+            h = config.history
+            self.history = HistoryStore(
+                h.dir,
+                segment_max_bytes=h.segment_max_bytes,
+                segment_max_age_seconds=h.segment_max_age_seconds,
+                retain_segments=h.retain_segments,
+                fsync=h.fsync,
+                fsync_interval_seconds=h.fsync_interval_seconds,
+                metrics=self.metrics,
+            )
+            self.history.recover(journal_limit=config.serve.compact_horizon)
         # the fleet-state serving plane: the view exists from construction
         # (the pipeline publishes into it); its HTTP server and broadcast
         # loops start in run() with the other servers
@@ -207,6 +229,7 @@ class WatcherApp:
                 metrics=self.metrics,
                 # the status plane's bearer: no unauthenticated side door
                 auth_token=config.watcher.status_auth_token,
+                history=self.history,
             )
             if self.tracer is not None:
                 self.serve.attach_trace(self.tracer.ring)
@@ -219,6 +242,26 @@ class WatcherApp:
 
             self.analytics = AnalyticsPlane(config.analytics, self.serve.view, metrics=self.metrics, device=device)
             self.serve.attach_analytics(self.analytics)
+        # the node-health plane: it reads the view (built above) and its
+        # gauges join the registry before the SLO engine's first sample; the
+        # actuator and the probe feed arm in run()
+        self.health = None
+        if config.health.enabled:
+            from k8s_watcher_tpu_torch.health import HealthPlane
+
+            self.health = HealthPlane(
+                config.health,
+                metrics=self.metrics,
+                view=self.serve.view if self.serve is not None else None,
+                environment=config.environment,
+            )
+        # the SLO engine, last among the planes, so its first sample sees
+        # their series
+        self.slo = None
+        if config.slo.enabled:
+            from k8s_watcher_tpu_torch.slo import SLOPlane
+
+            self.slo = SLOPlane(config.slo, self.metrics)
         c = config.clusterapi
         self.dispatcher = Dispatcher(
             self.notifier.update_pod_status,
@@ -318,6 +361,13 @@ class WatcherApp:
         if self.serve is not None:
             # before the status server, so /healthz folds a started plane
             self.serve.start()
+        if self.health is not None:
+            # ticks start now so peer baselines and trend anchors warm up;
+            # the actuator arms in _start_health
+            self.health.start()
+        if self.slo is not None:
+            # its first tick seeds the ring, so the burn windows have a base
+            self.slo.start()
         if self.config.watcher.status_port:
             agent = self._probe_agent
             trend = agent.trend.snapshot if agent is not None and agent.trend is not None else None
@@ -346,6 +396,11 @@ class WatcherApp:
                 trend=trend,
                 remediation=remediation_state,
                 probes=agent.recent_cycles if agent is not None else None,
+                history=self.history.stats if self.history is not None else None,
+                slo=self.slo.snapshot if self.slo is not None else None,
+                slo_health=self.slo.health if self.slo is not None else None,
+                node_health=self.health.snapshot if self.health is not None else None,
+                node_health_fold=self.health.health if self.health is not None else None,
                 auth_token=self.config.watcher.status_auth_token,
             ).start()
             routes = "/metrics, /healthz, /debug/slices" + (
@@ -355,8 +410,10 @@ class WatcherApp:
             ) + (", /debug/probes" if agent is not None else "") + (
                 ", /debug/remediation" if remediation_state is not None else ""
             ) + (", /debug/checkpoint" if self.checkpoint is not None else "") + (
-                ", /debug/freshness" if self.serve is not None else ""
-            )
+                ", /debug/history" if self.history is not None else ""
+            ) + (", /debug/freshness" if self.serve is not None else "") + (
+                ", /debug/slo" if self.slo is not None else ""
+            ) + (", /debug/health" if self.health is not None else "")
             logger.info("Status endpoint on :%d (%s)", self.status_server.port, routes)
         if self.notifier.health_check():
             logger.info("ClusterAPI health check passed")
@@ -365,6 +422,7 @@ class WatcherApp:
         namespaces = self.config.watcher.namespaces
         logger.info("Monitoring %s", f"namespaces: {list(namespaces)}" if namespaces else "all namespaces")
         self._start_remediation()
+        self._start_health()
         if self._probe_agent is not None:
             self._probe_agent.start()
         try:
@@ -420,6 +478,50 @@ class WatcherApp:
             t.remediation_taint_key, t.remediation_taint_value, t.remediation_taint_effect,
         )
 
+    def _start_health(self) -> None:
+        """Arm the health plane's write side: the probe reports feed it
+        (after the remediation policy, when that is armed), its TPU_HEALTH
+        escalations ride the dispatcher, and its confirmed nodes go to the
+        remediation plane's actuator (one budget and cooldown for both
+        confirmation paths), or to a dedicated one built from the same
+        ``tpu.remediation`` settings. With remediation off the verdicts stop
+        at confirmed."""
+        if self.health is None:
+            return
+        if self._probe_agent is not None and self.config.health.source_probe:
+            prev = self._probe_agent.report_observer
+            observe = self.health.observe_report
+
+            def chained(report, _prev=prev, _observe=observe):
+                if _prev is not None:
+                    _prev(report)
+                _observe(report)
+
+            self._probe_agent.report_observer = chained
+
+        def health_sink(payload, _submit=self.dispatcher.submit):
+            _submit(Notification(payload, time.monotonic(), kind="health"))
+
+        self.health.detector.sink = health_sink
+        actuator = None
+        if self.remediation is not None:
+            actuator = self.remediation.actuator
+        elif self.config.tpu.remediation_enabled:
+            client = getattr(self.source, "client", None)
+            if client is not None:
+                from k8s_watcher_tpu_torch.k8s.client import K8sClient
+                from k8s_watcher_tpu_torch.remediate import build_actuator
+
+                actuator = build_actuator(
+                    K8sClient(client.connection, request_timeout=self.config.kubernetes.request_timeout),
+                    self.config.tpu,
+                    metrics=self.metrics,
+                )
+        if actuator is not None:
+            self.health.arm_actuator(actuator)
+            logger.info("Health plane actuator armed (dry_run=%s, shared_with_remediation=%s)",
+                        actuator.dry_run, self.remediation is not None)
+
     def _maybe_checkpoint(self, force: bool = False) -> None:
         if self.checkpoint is None:
             return
@@ -459,12 +561,21 @@ class WatcherApp:
         if self.status_server is not None:
             self.status_server.stop()
             self.status_server = None
+        if self.slo is not None:
+            self.slo.stop()
+        if self.health is not None:
+            # before the serve plane: its tick reads the view
+            self.health.stop()
         if self.serve is not None:
             self.serve.stop()
         joined = True
         if self._probe_agent is not None:
             joined = self._probe_agent.stop()
         self.dispatcher.stop()
+        if self.history is not None:
+            # after every delta producer stopped: drain the WAL queue, write
+            # the final snapshot (the next boot's clean recovery anchor), fsync
+            self.history.close()
         if self.checkpoint is not None:
             self._maybe_checkpoint(force=True)
             self.checkpoint.flush()

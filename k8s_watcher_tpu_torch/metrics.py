@@ -1,14 +1,14 @@
-"""The metrics the probe agent, the dispatcher and the actuator record, and
-their exposition.
+"""The metrics every plane of the port records, and their exposition.
 
 The JAX package's ``metrics.MetricsRegistry`` with the same names, meanings
 and output: counters with a one-minute rate, gauges
 (``set``/``set_max``/``clear``), latency histograms on the same log-spaced
-buckets (40 per decade, 10 us .. 100 s), the JSON ``dump()`` and the
-Prometheus text exposition ``prometheus_text()``. Of the labelled series only
-counter children are carried (``counter.labels(codec="json")``: the serving
-plane's per-codec snapshot-cache counters), rendered as the JAX package
-renders them.
+buckets (40 per decade, 10 us .. 100 s), the JSON ``dump()``, the Prometheus
+text exposition ``prometheus_text()`` and the raw ``sample()`` the SLO plane
+keeps in its ring. Every metric is a label family: ``labels(node="a")``
+returns the child series of that label set (the serving plane's per-codec
+counters, the health plane's per-node gauges, the SLO plane's per-objective
+burn rates), rendered as the JAX package renders them.
 """
 
 from __future__ import annotations
@@ -30,23 +30,86 @@ def _log_buckets(lo: float, hi: float, per_decade: int = 40) -> List[float]:
 
 
 #: per-family cap on distinct label sets: labels are for bounded dimensions
-#: (codec names), never identifiers
+#: (codec, node and objective names), never identifiers; a family may raise
+#: its own ``max_label_sets``
 MAX_LABEL_SETS = 64
 _LABEL_NAME_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
 
 
+def _label_key(labels: Dict[str, object]) -> Tuple[Tuple[str, str], ...]:
+    """One label set, validated: sorted ``(name, value)`` pairs (the child's
+    identity and its render order)."""
+    if not labels:
+        raise ValueError("labels() requires at least one label")
+    out = []
+    for name in sorted(labels):
+        if not _LABEL_NAME_RE.match(name):
+            raise ValueError(f"invalid metric label name {name!r} (want [a-zA-Z_][a-zA-Z0-9_]*)")
+        value = labels[name]
+        if not isinstance(value, str):
+            if not isinstance(value, (int, float, bool)):
+                raise ValueError(f"metric label {name}={value!r}: values must be str/int/float/bool")
+            value = str(value)
+        if len(value) > 128:
+            raise ValueError(f"metric label {name}: value longer than 128 chars (unbounded label value?)")
+        out.append((name, value))
+    return tuple(out)
+
+
+def _escape_label_value(value: str) -> str:
+    return value.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
 def render_labels(labelset: Tuple[Tuple[str, str], ...]) -> str:
     """``(("codec", "json"),)`` -> ``{codec="json"}`` (Prometheus escaping)."""
-    def esc(v: str) -> str:
-        return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+    if not labelset:
+        return ""
+    return "{" + ",".join(f'{k}="{_escape_label_value(v)}"' for k, v in labelset) + "}"
 
-    return "{" + ",".join(f'{k}="{esc(v)}"' for k, v in labelset) + "}" if labelset else ""
+
+class _LabelFamily:
+    """Labels for a metric: the registered metric is the family and the
+    unlabelled series (it keeps the cross-label total where one is kept);
+    ``labels(...)`` gets or creates the child of one label set. The
+    ``max_label_sets``-th new label set raises instead of growing."""
+
+    max_label_sets = MAX_LABEL_SETS
+
+    def _init_labels(self) -> None:
+        self.labelset: Tuple[Tuple[str, str], ...] = ()
+        self._children: Dict[Tuple, "_LabelFamily"] = {}
+        self._labels_lock = threading.Lock()
+
+    def _make_child(self):
+        raise NotImplementedError
+
+    def labels(self, **labels):
+        key = _label_key(labels)
+        with self._labels_lock:
+            child = self._children.get(key)
+            if child is None:
+                if self.labelset:
+                    raise ValueError(
+                        f"labels() on an already-labeled series {self.name}{render_labels(self.labelset)}")
+                if len(self._children) >= self.max_label_sets:
+                    raise ValueError(
+                        f"metric {self.name}: label-set cardinality bound ({self.max_label_sets}) exceeded "
+                        f"registering {render_labels(key)} — label values must be bounded dimensions, "
+                        f"not identifiers")
+                child = self._make_child()
+                child.labelset = key
+                self._children[key] = child
+            return child
+
+    def children(self) -> List["_LabelFamily"]:
+        """Child series sorted by label set (the exposition order)."""
+        with self._labels_lock:
+            return [self._children[k] for k in sorted(self._children)]
 
 
-class Counter:
+class Counter(_LabelFamily):
     """Monotonic counter with a one-minute rate kept in per-second buckets
-    (O(1) per ``inc``, O(window) memory). ``labels(codec="json")`` returns the
-    child counter of that label set; the parent keeps the cross-label total."""
+    (O(1) per ``inc``, O(window) memory)."""
 
     _BUCKETS = 62  # 60 one-second buckets, +2 for edge churn
 
@@ -56,37 +119,10 @@ class Counter:
         self._count = 0
         # (whole_second, count) per bucket, oldest first
         self._window: collections.deque = collections.deque(maxlen=self._BUCKETS)
-        self.labelset: Tuple[Tuple[str, str], ...] = ()
-        self._children: Dict[Tuple[Tuple[str, str], ...], "Counter"] = {}
+        self._init_labels()
 
-    def labels(self, **labels) -> "Counter":
-        if not labels:
-            raise ValueError("labels() requires at least one label")
-        key = []
-        for name in sorted(labels):
-            value = labels[name]
-            if not _LABEL_NAME_RE.match(name):
-                raise ValueError(f"invalid metric label name {name!r}")
-            if not isinstance(value, (str, int, float, bool)) or len(str(value)) > 128:
-                raise ValueError(f"metric label {name}={value!r}: want a short str/int/float/bool")
-            key.append((name, str(value)))
-        key = tuple(key)
-        with self._lock:
-            child = self._children.get(key)
-            if child is None:
-                if self.labelset:
-                    raise ValueError(f"labels() on an already-labelled series {self.name}{render_labels(self.labelset)}")
-                if len(self._children) >= MAX_LABEL_SETS:
-                    raise ValueError(f"metric {self.name}: more than {MAX_LABEL_SETS} label sets")
-                child = Counter(self.name)
-                child.labelset = key
-                self._children[key] = child
-            return child
-
-    def children(self) -> List["Counter"]:
-        """Child series sorted by label set (the exposition order)."""
-        with self._lock:
-            return [self._children[k] for k in sorted(self._children)]
+    def _make_child(self) -> "Counter":
+        return Counter(self.name)
 
     def inc(self, n: int = 1) -> None:
         sec = int(time.monotonic())
@@ -109,7 +145,7 @@ class Counter:
             return float(sum(c for sec, c in self._window if sec > cutoff))
 
 
-class Gauge:
+class Gauge(_LabelFamily):
     """A point-in-time reading: last value wins; ``clear`` withdraws it."""
 
     def __init__(self, name: str):
@@ -117,6 +153,10 @@ class Gauge:
         self._lock = threading.Lock()
         self._value = 0.0
         self._set = False
+        self._init_labels()
+
+    def _make_child(self) -> "Gauge":
+        return Gauge(self.name)
 
     def set(self, value: float) -> None:
         with self._lock:
@@ -150,17 +190,23 @@ class Gauge:
             return self._value if self._set else None
 
 
-class Histogram:
-    """Log-bucketed latency histogram (seconds)."""
+class Histogram(_LabelFamily):
+    """Log-bucketed latency histogram (seconds); children share the
+    parent's bucket layout."""
 
     def __init__(self, name: str, lo: float = 1e-5, hi: float = 100.0):
         self.name = name
+        self._lo, self._hi = lo, hi
         self._bounds = _log_buckets(lo, hi)
         self._counts = [0] * (len(self._bounds) + 1)
         self._lock = threading.Lock()
         self._n = 0
         self._sum = 0.0
         self._max = 0.0
+        self._init_labels()
+
+    def _make_child(self) -> "Histogram":
+        return Histogram(self.name, self._lo, self._hi)
 
     def record(self, seconds: float) -> None:
         idx = bisect.bisect_left(self._bounds, seconds)
@@ -247,74 +293,110 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """Named counters, gauges and histograms of one process."""
+    """Named counters, gauges and histograms of one process. Scrapes render
+    from sorted item lists cached until the next new registration."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._counters: Dict[str, Counter] = {}
         self._gauges: Dict[str, Gauge] = {}
         self._histograms: Dict[str, Histogram] = {}
+        # None = stale: rebuilt on the next scrape
+        self._sorted_counters: Optional[List[Tuple[str, Counter]]] = None
+        self._sorted_gauges: Optional[List[Tuple[str, Gauge]]] = None
+        self._sorted_histograms: Optional[List[Tuple[str, Histogram]]] = None
 
     def counter(self, name: str) -> Counter:
         with self._lock:
             if name not in self._counters:
                 self._counters[name] = Counter(name)
+                self._sorted_counters = None
             return self._counters[name]
 
     def gauge(self, name: str) -> Gauge:
         with self._lock:
             if name not in self._gauges:
                 self._gauges[name] = Gauge(name)
+                self._sorted_gauges = None
             return self._gauges[name]
 
     def histogram(self, name: str) -> Histogram:
         with self._lock:
             if name not in self._histograms:
                 self._histograms[name] = Histogram(name)
+                self._sorted_histograms = None
             return self._histograms[name]
+
+    def peek_histogram(self, name: str) -> Optional[Histogram]:
+        """The histogram if it is registered, else None: read-only consumers
+        (the health plane's stage sweep) must not mint empty series."""
+        with self._lock:
+            return self._histograms.get(name)
 
     def _sorted_items(self):
         with self._lock:
-            return (sorted(self._counters.items()), sorted(self._gauges.items()),
-                    sorted(self._histograms.items()))
+            if self._sorted_counters is None:
+                self._sorted_counters = sorted(self._counters.items())
+            if self._sorted_gauges is None:
+                self._sorted_gauges = sorted(self._gauges.items())
+            if self._sorted_histograms is None:
+                self._sorted_histograms = sorted(self._histograms.items())
+            return self._sorted_counters, self._sorted_gauges, self._sorted_histograms
+
+    @staticmethod
+    def _emit_histogram(lines: List[str], metric: str, h: Histogram, labelset) -> None:
+        # ``le`` renders last in the label set
+        pairs, total, total_sum = h.downsampled_buckets_with_totals()
+        prefix_labels = ",".join(f'{k}="{_escape_label_value(v)}"' for k, v in labelset)
+        sep = "," if prefix_labels else ""
+        for bound, cum in pairs:
+            le = "+Inf" if bound == float("inf") else f"{bound:.3g}"
+            lines.append(f'{metric}_bucket{{{prefix_labels}{sep}le="{le}"}} {cum}')
+        labels = render_labels(labelset)
+        lines.append(f"{metric}_sum{labels} {total_sum}")
+        lines.append(f"{metric}_count{labels} {total}")
 
     def prometheus_text(self, prefix: str = "k8s_watcher_") -> str:
         """Prometheus text exposition (v0.0.4): counters as ``<name>_total``,
         gauges only while set, histograms as ``_bucket{le=...}``/``_sum``/
-        ``_count`` in seconds, every family sorted by name."""
+        ``_count`` in seconds, every family sorted by name and its children
+        by label set. A labelled family's parent renders only when it
+        carries data, never as a misleading 0."""
         counters, gauges, histograms = self._sorted_items()
         lines: List[str] = []
         for name, c in counters:
             metric = f"{prefix}{name}"
             lines.append(f"# TYPE {metric}_total counter")
             children = c.children()
-            # a labelled family's parent renders only when it carries the
-            # cross-label total, never as a misleading 0
             if not children or c.value > 0:
                 lines.append(f"{metric}_total {c.value}")
             for child in children:
                 lines.append(f"{metric}_total{render_labels(child.labelset)} {child.value}")
         for name, g in gauges:
-            reading = g.read()
-            if reading is None:
-                continue  # a never-set or cleared gauge would scrape as a misleading 0
             metric = f"{prefix}{name}"
+            reading = g.read()
+            child_lines = [(child.labelset, r) for child in g.children() if (r := child.read()) is not None]
+            if reading is None and not child_lines:
+                continue  # a never-set or cleared gauge would scrape as a misleading 0
             lines.append(f"# TYPE {metric} gauge")
-            lines.append(f"{metric} {reading:g}")
+            if reading is not None:
+                lines.append(f"{metric} {reading:g}")
+            for labelset, child_reading in child_lines:
+                lines.append(f"{metric}{render_labels(labelset)} {child_reading:g}")
         for name, h in histograms:
             metric = f"{prefix}{name}" if name.endswith("_seconds") else f"{prefix}{name}_seconds"
+            children = h.children()
             lines.append(f"# TYPE {metric} histogram")
-            pairs, total, total_sum = h.downsampled_buckets_with_totals()
-            for bound, cum in pairs:
-                le = "+Inf" if bound == float("inf") else f"{bound:.3g}"
-                lines.append(f'{metric}_bucket{{le="{le}"}} {cum}')
-            lines.append(f"{metric}_sum {total_sum}")
-            lines.append(f"{metric}_count {total}")
+            if not children or h.count > 0:
+                self._emit_histogram(lines, metric, h, ())
+            for child in children:
+                self._emit_histogram(lines, metric, child, child.labelset)
         return "\n".join(lines) + "\n"
 
     def dump(self) -> Dict[str, Dict]:
         """The JSON snapshot: counters with their one-minute rate, histogram
-        summaries, and the gauges that are set."""
+        summaries, the gauges that are set, and each family's children under
+        ``series`` with their labels as data."""
         counters, gauges, histograms = self._sorted_items()
         out: Dict[str, Dict] = {}
         for name, c in counters:
@@ -326,9 +408,49 @@ class MetricsRegistry:
                     for ch in children
                 ]
         for name, h in histograms:
-            out[name] = h.summary()
+            entry = h.summary()
+            children = h.children()
+            if children:
+                entry["series"] = [{"labels": dict(ch.labelset), **ch.summary()} for ch in children]
+            out[name] = entry
         for name, g in gauges:
             reading = g.read()
+            children = g.children()
+            if reading is None and not children:
+                continue
+            entry: Dict = {}
             if reading is not None:
-                out[name] = {"value": reading}
+                entry["value"] = reading
+            if children:
+                entry["series"] = [{"labels": dict(ch.labelset), "value": r}
+                                   for ch in children if (r := ch.read()) is not None]
+            if entry:
+                out[name] = entry
+        return out
+
+    def sample(self, *, include_series: bool = False) -> Dict[str, Dict]:
+        """One raw sample of every registered metric (the SLO plane's ring
+        entry): counters -> the unlabelled total; gauges -> the maximum over
+        the parent and every set child (staleness objectives gate the worst
+        member); histograms -> ``(cumulative_pairs, total, sum)`` for window
+        differencing. ``include_series`` adds the counter and gauge children
+        as ``[[[name, value], ...], reading]`` rows under ``series``."""
+        counters, gauges, histograms = self._sorted_items()
+        out: Dict[str, Dict] = {"counters": {}, "gauges": {}, "histograms": {}}
+        for name, c in counters:
+            out["counters"][name] = c.value
+        for name, g in gauges:
+            readings = [r for r in (g.read(), *(ch.read() for ch in g.children())) if r is not None]
+            if readings:
+                out["gauges"][name] = max(readings)
+        for name, h in histograms:
+            out["histograms"][name] = h.downsampled_buckets_with_totals()
+        if include_series:
+            c_series = {name: rows for name, c in counters
+                        if (rows := [[[list(p) for p in ch.labelset], ch.value] for ch in c.children()])}
+            g_series = {name: rows for name, g in gauges
+                        if (rows := [[[list(p) for p in ch.labelset], r]
+                                     for ch in g.children() if (r := ch.read()) is not None])}
+            if c_series or g_series:
+                out["series"] = {"counters": c_series, "gauges": g_series}
         return out

@@ -45,6 +45,7 @@ import numpy as np
 from k8s_watcher_tpu_torch.analytics.encode import (
     LOCAL_CLUSTER,
     POD_PHASE_CODE,
+    POD_PHASES,
     FleetColumns,
     Interner,
     build_slice_tables,
@@ -95,6 +96,17 @@ class BodySnapshot(NamedTuple):
     keys: Optional[List[Optional[str]]]  # row -> pod key (when requested)
 
 
+class PodHandle(NamedTuple):
+    """The health plane's read handle: parallel per-pod sequences (live rows,
+    then side-table pods) and the live slice objects, shared per generation.
+    Phases are the fixed ``POD_PHASES`` vocabulary."""
+
+    keys: List[str]
+    phases: List[str]
+    nodes: List[Optional[str]]
+    slices: List[Dict[str, Any]]
+
+
 class ColumnarStore:
     """Append/tombstone columnar fleet store with dict-of-dicts semantics
     (insertion order, identical-upsert dedup). Not thread-safe: the owning
@@ -125,6 +137,8 @@ class ColumnarStore:
         self._gen = 0
         self._cols: Optional[FleetColumns] = None
         self._cols_gen = -1
+        self._handle: Optional[PodHandle] = None
+        self._handle_gen = -1
         # incrementally maintained resident estimate (view_resident_bytes)
         self._parts_bytes = 0  # sum of len(part) over live and dead rows
         self._keys_bytes = 0  # key strings + per-entry bookkeeping
@@ -211,6 +225,28 @@ class ColumnarStore:
         if self._dead > 1024 and self._dead * 2 > len(self._parts):
             self._compact()
         return True
+
+    def reseed(self, objects) -> None:
+        """Adopt a whole ``{(kind, key): obj}`` state (the view's
+        ``restore``). The interners keep their codes, and nothing is
+        serialized here: the first body build flushes the pending pods."""
+        self._rows.clear()
+        self._parts.clear()
+        self._phase[: self._arr_len] = -1
+        self._arr_len = 0
+        self._dead = 0
+        self._pending.clear()
+        self._pending_new = 0
+        self._side.clear()
+        self._parts_bytes = 0
+        self._keys_bytes = 0
+        for (kind, key), obj in objects.items():
+            if kind == POD_KIND:
+                self._pending[key] = obj
+                self._pending_new += 1
+            else:
+                self._side[(kind, key)] = (self._anchor(), obj)
+        self._gen += 1
 
     def _side_upsert(self, kind: str, key: str, obj: Dict[str, Any]) -> bool:
         sk = (kind, key)
@@ -396,6 +432,35 @@ class ColumnarStore:
         )
         self._cols_gen = self._gen
         return self._cols
+
+    def pod_handle(self) -> PodHandle:
+        """The health plane's per-pod sequences (see ``PodHandle``), cached
+        per generation beside the columns."""
+        self._flush()
+        if self._handle is not None and self._handle_gen == self._gen:
+            return self._handle
+        n = self._arr_len
+        row_keys: List[Optional[str]] = [None] * n
+        for key, row in self._rows.items():
+            row_keys[row] = key
+        mask = self._phase[:n] >= 0
+        idx = np.flatnonzero(mask).tolist()
+        node_names = self.nodes.names
+        keys = [row_keys[i] for i in idx]
+        phases = [POD_PHASES[c] for c in self._phase[:n][mask].tolist()]
+        nodes = [node_names[c] if c >= 0 else None for c in self._node[:n][mask].tolist()]
+        slices: List[Dict[str, Any]] = []
+        for (kind, key), (_anchor, obj) in self._side.items():
+            if kind == "slice":
+                slices.append(obj)
+            elif kind == POD_KIND:
+                keys.append(key)
+                phases.append(str(obj.get("phase") or "Unknown"))
+                node = obj.get("node")
+                nodes.append(str(node) if node else None)
+        self._handle = PodHandle(keys=keys, phases=phases, nodes=nodes, slices=slices)
+        self._handle_gen = self._gen
+        return self._handle
 
     def resident_bytes(self) -> int:
         """O(1) resident estimate for the ``view_resident_bytes`` gauge."""

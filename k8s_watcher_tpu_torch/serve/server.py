@@ -16,7 +16,9 @@ One resource, ``/serve/fleet``, with the apiserver's contract:
 - A resume token behind the horizon answers **410 Gone** (pre-stream) or an
   in-band ``GONE`` frame; so does a token minted by another incarnation
   (``&view=<id>``) or one ahead of the view. The consumer re-snapshots.
-- ``?at=N`` (time travel) answers 400 while the history plane is off.
+- ``?at=N`` (time travel): the fleet snapshot as of rv N, rebuilt from the
+  history WAL (400 while the history plane is off or past the durable rv,
+  410 behind the retention horizon); recent reconstructions sit in an LRU.
 - ``GET /serve/analytics``: the analytics plane's summary or batched what-if
   (404 when the plane is off); ``GET /debug/trace``: the trace ring (404 when
   tracing is off).
@@ -37,6 +39,7 @@ import json
 import logging
 import threading
 import time
+from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
@@ -89,6 +92,31 @@ class _HandoffHTTPServer(QuietThreadingHTTPServer):
         super().shutdown_request(request)
 
 
+class _AtCache:
+    """A small LRU of ``?at=`` bodies. Keys carry the view's instance and
+    the WAL's ``cache_epoch`` (bumped on a rebase and on retention), so a
+    change to what an rv rebuilds to makes old keys stop matching."""
+
+    def __init__(self, capacity: int = 16):
+        self.capacity = capacity
+        self._lock = threading.Lock()
+        self._entries: OrderedDict = OrderedDict()
+
+    def get(self, key):
+        with self._lock:
+            body = self._entries.get(key)
+            if body is not None:
+                self._entries.move_to_end(key)
+            return body
+
+    def put(self, key, body: bytes) -> None:
+        with self._lock:
+            self._entries[key] = body
+            self._entries.move_to_end(key)
+            while len(self._entries) > self.capacity:
+                self._entries.popitem(last=False)
+
+
 class _ServeHandler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
     disable_nagle_algorithm = True
@@ -98,6 +126,10 @@ class _ServeHandler(BaseHTTPRequestHandler):
     view: FleetView
     hub: SubscriptionHub
     plane = None  # the owning ServePlane (health payload)
+    history = None  # history.HistoryStore -> ?at= reads
+    at_cache: Optional[_AtCache] = None  # the ?at= LRU
+    at_hits = None  # serve_at_cache_hits / _misses, when metrics are wired
+    at_misses = None
     analytics = None  # analytics.AnalyticsPlane -> /serve/analytics
     trace = None  # trace.TraceRing -> GET /debug/trace on the serve port
     loop: Optional[BroadcastLoop] = None  # the epoll core; None = threaded streams
@@ -157,9 +189,51 @@ class _ServeHandler(BaseHTTPRequestHandler):
         if params.get("watch") in ("1", "true"):
             self._serve_watch(params, codec)
         elif "at" in params:
-            self._send_obj(400, {"error": "time-travel reads need the history plane (history.enabled)"}, codec)
+            self._serve_at(params, codec)
         else:
             self._body_bytes(200, self.view.snapshot_bytes(codec=codec), CODEC_CONTENT_TYPES[codec])
+
+    def _serve_at(self, params: dict, codec: str) -> None:
+        """``GET /serve/fleet?at=N``: the snapshot as of rv N, rebuilt from
+        the WAL's snapshot records and deltas; 410 behind the retention
+        horizon, as a compacted resume token."""
+        if self.history is None:
+            self._send_obj(400, {"error": "time-travel reads need the history plane (history.enabled)"}, codec)
+            return
+        try:
+            at_rv = int(params["at"])
+        except ValueError:
+            self._send_obj(400, {"error": "at= must be an integer rv"}, codec)
+            return
+        if at_rv < 0:
+            self._send_obj(400, {"error": "at= must be >= 0"}, codec)
+            return
+        cache_key = (self.view.instance, self.history.cache_epoch, at_rv, codec)
+        cached = self.at_cache.get(cache_key)
+        if cached is not None:
+            if self.at_hits is not None:
+                self.at_hits.inc()
+            self._body_bytes(200, cached, CODEC_CONTENT_TYPES[codec])
+            return
+        if self.at_misses is not None:
+            self.at_misses.inc()
+        status, rv, objects = self.history.reconstruct(at_rv)
+        if status == "gone":
+            self._send_obj(410, {"error": "rv is not reconstructible from retained history "
+                                          "(behind the retention horizon, or inside a rebase/tear hole)",
+                                 "rv": at_rv, "retention_floor_rv": rv}, codec)
+            return
+        if status == "future":
+            self._send_obj(400, {"error": "rv is past the durable history (not yet written, or never minted)",
+                                 "rv": at_rv, "durable_rv": rv}, codec)
+            return
+        # sorted (kind, key): reconstructions compare byte for byte
+        reconstruction = {"rv": at_rv, "view": self.view.instance, "historical": True,
+                          "objects": [objects[k] for k in sorted(objects)]}
+        body = frame_body(reconstruction, CODEC_MSGPACK) if codec == CODEC_MSGPACK else json.dumps(
+            reconstruction).encode()
+        self.at_cache.put(cache_key, body)
+        self._body_bytes(200, body, CODEC_CONTENT_TYPES[codec])
 
     def _serve_analytics(self, params: dict, codec: str) -> None:
         """``GET /serve/analytics``: no parameters -> the summary;
@@ -345,6 +419,7 @@ class ServeServer:
         port: int = 0,
         auth_token: Optional[str] = None,
         plane=None,
+        history=None,
         analytics=None,
         trace=None,  # trace.TraceRing -> GET /debug/trace
         io_threads: int = 1,
@@ -357,7 +432,11 @@ class ServeServer:
         )
         handler = type("BoundServeHandler", (_ServeHandler,), {
             "view": view, "hub": hub, "auth_token": auth_token, "plane": plane, "analytics": analytics,
-            "trace": trace, "loop": self.loop,
+            "trace": trace, "loop": self.loop, "history": history,
+            "at_cache": _AtCache() if history is not None else None,
+            "at_hits": metrics.counter("serve_at_cache_hits") if metrics is not None and history is not None else None,
+            "at_misses": (metrics.counter("serve_at_cache_misses")
+                          if metrics is not None and history is not None else None),
         })
         self._server = _HandoffHTTPServer((host, port), handler)
         self._server.daemon_threads = True
@@ -390,9 +469,16 @@ class ServeServer:
 class ServePlane:
     """What the app wires: view + hub + HTTP server + the health verdict. The
     view exists from construction (the pipeline publishes into it at once);
-    the server starts with the app's other servers."""
+    the server starts with the app's other servers.
 
-    def __init__(self, config, *, metrics=None, auth_token: Optional[str] = None):
+    With a recovered ``history`` store the view continues the previous
+    incarnation: after a clean stop it adopts its instance, rv line, objects
+    and journal tail (resume tokens minted before the stop read on); after
+    an unclean end it keeps the durable state and rv line under a fresh
+    instance, so tokens minted before the crash re-snapshot (410) instead of
+    grafting onto an rv line that may re-mint lost rvs."""
+
+    def __init__(self, config, *, metrics=None, auth_token: Optional[str] = None, history=None):
         self.config = config
         self.metrics = metrics
         self.view = FleetView(
@@ -401,6 +487,23 @@ class ServePlane:
             # serve.columnar: auto/on = the columnar core, off = the dict core
             columnar=config.columnar != "off",
         )
+        self.history = history
+        if history is not None:
+            recovered = history.recovered
+            if recovered is not None and recovered.instance:
+                from k8s_watcher_tpu_torch.history.recovery import journal_deltas
+
+                if recovered.clean:
+                    self.view.restore(instance=recovered.instance, rv=recovered.rv, objects=recovered.objects,
+                                      journal=journal_deltas(recovered.journal))
+                else:
+                    logger.warning(
+                        "History WAL ends uncleanly (crash?): resuming rv line at %d under a fresh view "
+                        "instance — pre-crash resume tokens will re-snapshot (410)", recovered.rv)
+                    self.view.restore(instance=self.view.instance, rv=recovered.rv, objects=recovered.objects,
+                                      journal=[])
+            history.open(self.view.instance)
+            self.view.attach_history(history)
         self.hub = SubscriptionHub(self.view, max_subscribers=config.max_subscribers,
                                    queue_depth=config.queue_depth, metrics=metrics)
         self.server: Optional[ServeServer] = None
@@ -435,6 +538,7 @@ class ServePlane:
             port=self.config.port,
             auth_token=self._auth_token,
             plane=self,
+            history=self.history,
             analytics=self.analytics,
             trace=self.trace_ring,
             io_threads=self.config.io_threads,
@@ -478,5 +582,12 @@ class ServePlane:
             body["io_loop"] = {"healthy": loop_alive, "threads": server.loop.threads,
                                "streams": server.loop.client_count}
             if not loop_alive:
+                body["healthy"] = False
+        if self.history is not None:
+            # a dead WAL writer stops persisting deltas; folded only while
+            # the plane runs (a writer closed after stop() is no fault)
+            history_health = self.history.health()
+            body["history"] = history_health
+            if server is not None and not history_health["healthy"]:
                 body["healthy"] = False
         return body

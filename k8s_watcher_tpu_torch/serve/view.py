@@ -22,6 +22,11 @@ Concurrency: the pipeline thread (``publish_batch``) and the sink taps
 (slices, probes) write under one lock; readers share it and long-polls wait
 on its condition. Deltas and objects are replaced, never mutated.
 
+Durable history: with a ``history.HistoryStore`` attached, every applied
+delta is handed to the WAL under the same lock (O(1)), so the WAL is in rv
+order; ``restore`` adopts a recovered incarnation (instance, rv line,
+objects, journal tail), so resume tokens survive a restart.
+
 Encode-once fan-out: every delta's **wire frame** (its payload, already in
 HTTP chunked framing) is serialized at most once per frame variant into
 arrays parallel to the journal, and every subscriber streaming it appends the
@@ -111,8 +116,9 @@ class Delta(NamedTuple):
 
     ``ts_wall`` is the origin wall stamp (the watch event's receive stamp
     for pods, the apply time for sink taps); ``pub_wall`` is when this view
-    published it. ``trace`` is the sampled journey (a live ``trace.Trace``)
-    the ``?trace=1`` wire forwards; None for unsampled deltas."""
+    published it. ``trace`` is the sampled journey the ``?trace=1`` wire
+    forwards (a live ``trace.Trace``, or its compact wire dict); None for
+    unsampled deltas."""
 
     rv: int
     kind: str  # "pod" | "slice" | "probe"
@@ -132,7 +138,9 @@ class Delta(NamedTuple):
             # [origin_wall, publish_wall], only for peers that asked
             out["ts"] = [self.ts_wall, self.pub_wall]
         if trace and self.trace is not None:
-            out["trace"] = wire_trace(self.trace)
+            # a compact dict (an ``apply_batch`` item's fifth element) is
+            # already the wire form and passes through as it is
+            out["trace"] = self.trace if isinstance(self.trace, dict) else wire_trace(self.trace)
         return out
 
 
@@ -213,6 +221,10 @@ class FleetView:
         self._tables_cache: Optional[Tuple[int, Dict[str, List[Dict[str, Any]]]]] = None
         # post-publish wakeups, called outside the lock (the broadcast loops)
         self._wakeups: List[Callable[[], None]] = []
+        # the durable WAL (history.HistoryStore) when the history plane is
+        # on: every applied delta is handed to it under the publish lock,
+        # which is what keeps the WAL rv-ordered across the writer threads
+        self._history = None
         m = metrics
         self._publish_seconds = m.histogram("serve_publish_seconds") if m is not None else None
         self._delta_lag = m.histogram("serve_delta_lag_seconds") if m is not None else None
@@ -233,6 +245,53 @@ class FleetView:
         self._watch_to_local = m.histogram("watch_to_local_view_seconds") if m is not None else None
         self._apply_seconds = m.histogram("view_apply_seconds") if m is not None else None
         self._resident_bytes = m.gauge("view_resident_bytes") if m is not None else None
+
+    # -- durable history: an rv line that survives a restart -------------
+
+    def restore(self, *, instance: str, rv: int, objects: Dict[Tuple[str, str], Dict[str, Any]],
+                journal: List[Delta]) -> None:
+        """Adopt WAL-recovered state: the previous incarnation's instance id,
+        its rv line (new deltas continue from ``rv``), its objects and the
+        preloaded journal tail (rv-ascending, contiguous, ending at ``rv``),
+        so resume tokens minted before the restart read from memory. Call
+        before any publish."""
+        with self._cond:
+            self.instance = instance
+            self._rv = rv
+            if self.columnar:
+                self._objects.reseed(objects)  # the interners keep their codes
+            else:
+                self._objects = dict(objects)
+            self._deltas = list(journal)
+            self._delta_rvs = [d.rv for d in journal]
+            # holes, not eager re-encodes: the first resumed read fills what
+            # it pulls
+            self._frames = {variant: [None] * len(journal) for variant in FRAME_VARIANTS}
+            self._snapshot_cache = {}
+            # the same rv may come back with other objects (replay across a
+            # rebase hole): rv keying alone would serve stale tables
+            self._tables_cache = None
+            # tokens older than the preloaded tail get GONE
+            self._oldest_rv = journal[0].rv - 1 if journal else rv
+            if self._rv_gauge is not None:
+                self._rv_gauge.set(self._rv)
+
+    def attach_history(self, history) -> None:
+        """Wire the durable WAL: every apply path hands it the deltas; it
+        reads the live state back only to rebase after an overrun."""
+        history.state_provider = self.state_for_history
+        self._history = history
+
+    def state_for_history(self) -> Tuple[int, Dict[Tuple[str, str], Dict[str, Any]]]:
+        """``(rv, {(kind, key): obj})``: the WAL writer's rebase anchor. On
+        the columnar core the structural snapshot is taken under the lock
+        and the objects are rebuilt outside it."""
+        with self._cond:
+            if not self.columnar:
+                return self._rv, dict(self._objects)
+            rv = self._rv
+            snap = self._objects.snapshot_parts(with_keys=True)
+        return rv, {(kind, key): obj for kind, key, obj in iter_snapshot_objects(snap)}
 
     # -- writing (pipeline thread + sink taps) ----------------------------
 
@@ -311,7 +370,12 @@ class FleetView:
         for frames in self._frames.values():
             del frames[:overflow]
 
-    def _published_locked(self) -> None:
+    def _published_locked(self, changed: int) -> None:
+        if self._history is not None:
+            # before the trim, so a horizon shorter than the batch never
+            # costs the WAL a delta; the JSON frames ride along (holes are
+            # re-packed by the writer)
+            self._history.publish(self._deltas[-changed:], frames=self._frames[CODEC_JSON][-changed:])
         self._trim_locked()
         if self._rv_gauge is not None:
             self._rv_gauge.set(self._rv)
@@ -330,36 +394,41 @@ class FleetView:
         for fn in self._wakeups:
             fn()
 
-    def apply(self, kind: str, key: str, obj: Optional[Dict[str, Any]], *, ts_wall: Optional[float] = None) -> bool:
+    def apply(self, kind: str, key: str, obj: Optional[Dict[str, Any]], *, ts_wall: Optional[float] = None,
+              trace: Optional[Any] = None) -> bool:
         """Upsert (``obj``) or delete (``obj is None``) one object and wake the
         subscribers (the sink taps' path). ``ts_wall`` overrides the origin
-        stamp (default: now)."""
+        stamp (default: now); ``trace`` rides the ``?trace=1`` wire."""
         now = time.monotonic()
         wall = time.time()
         with self._cond:
             changed = self._apply_locked(kind, key, obj, now, ts_wall=ts_wall if ts_wall is not None else wall,
-                                         pub_wall=wall)
+                                         pub_wall=wall, trace=trace)
             if changed:
-                self._published_locked()
+                self._published_locked(1)
         if changed:
             self._after_publish(1, now, time.monotonic(), batch=False)
         return changed
 
     def apply_batch(self, items) -> int:
-        """Fold a batch of ``(kind, key, obj_or_None)`` mutations (or
-        ``(kind, key, obj_or_None, ts_wall)``, carrying an origin stamp) under
-        one lock hold, with one wakeup. Frames are journaled as holes that the
-        first read in each variant fills. Returns the deltas minted."""
+        """Fold a batch of ``(kind, key, obj_or_None)`` mutations under one
+        lock hold, with one WAL hand-off and one wakeup. A fourth element
+        carries the origin stamp ``ts_wall``, a fifth the journey's compact
+        ``trace`` dict (the ``?trace=1`` field, forwarded as it is). Frames
+        are journaled as holes that the first read in each variant fills.
+        Returns the deltas minted."""
         now = time.monotonic()
         wall = time.time()
         changed = 0
         with self._cond:
             for item in items:
                 ts = item[3] if len(item) > 3 and item[3] is not None else wall
-                if self._apply_locked(item[0], item[1], item[2], now, encode=False, ts_wall=ts, pub_wall=wall):
+                trace = item[4] if len(item) > 4 else None
+                if self._apply_locked(item[0], item[1], item[2], now, encode=False, ts_wall=ts, pub_wall=wall,
+                                      trace=trace):
                     changed += 1
             if changed:
-                self._published_locked()
+                self._published_locked(changed)
         if changed:
             self._after_publish(changed, now, time.monotonic())
         return changed
@@ -401,11 +470,18 @@ class FleetView:
                         applied_watch_stamps.append(received)
                 if trace is not None and not trace.handed_off:
                     stamp.append(trace)
+            t_wal = 0.0
             if changed:
-                self._published_locked()
+                if self._history is not None:
+                    t_wal = time.monotonic()
+                self._published_locked(changed)
         t_end = time.monotonic()
         for trace in stamp:
             trace.add_span("serve_fanout", t_start, t_end)
+            if t_wal:
+                # the WAL enqueue; disk time is the writer thread's
+                # (history_wal_write_seconds)
+                trace.add_span("wal_append", t_wal, t_end)
         if changed:
             if self._watch_to_local is not None:
                 for received in applied_watch_stamps:
@@ -537,6 +613,13 @@ class FleetView:
         most once per generation and shared (columnar core only)."""
         with self._cond:
             return self._rv, self._objects.fleet_columns()
+
+    def fleet_handle(self):
+        """``(rv, PodHandle)``: the health plane's per-pod keys, phases and
+        nodes plus the live slice objects, decoded from the columns at most
+        once per generation (columnar core only; shared, read-only)."""
+        with self._cond:
+            return self._rv, self._objects.pod_handle()
 
     def freshness(self) -> Dict[str, Any]:
         """The local view's freshness watermark (``/debug/freshness``): the

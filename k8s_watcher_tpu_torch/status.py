@@ -7,7 +7,9 @@
 - ``/healthz``: 200 while the heartbeat (the watch loop's, or the probe
   loop's) is fresh and, when wired, the dispatcher's egress side is moving
   and the serving plane's HTTP thread and broadcast loops are alive; 503
-  otherwise (the liveness target);
+  otherwise (the liveness target). The SLO verdict (``slo``) and the health
+  plane's fold (``health``) ride the body only: a breached budget or a
+  confirmed straggler is no local fault a restart fixes;
 - ``/debug/events?n=&uid=``: the audit ring's last pipeline decisions and
   egress outcomes;
 - ``/debug/trace?n=&uid=&slowest=``: the tracing plane's sampled journeys;
@@ -17,7 +19,10 @@
 - ``/debug/probes?n=``: the last ``n`` cycle summaries (400 on a bad ``n``);
 - ``/debug/remediation``: the remediation policy's state;
 - ``/debug/freshness``: the serving plane's freshness watermark and the
-  watch-to-view histogram.
+  watch-to-view histogram;
+- ``/debug/history``: the history WAL's segment inventory;
+- ``/debug/health``: the health plane's subjects, verdicts and actions;
+- ``/debug/slo``: the SLO engine's objectives and burn rates.
 
 A route whose plane is not wired answers 404 naming the config key.
 
@@ -171,6 +176,11 @@ class _StatusHandler(BaseHTTPRequestHandler):
     # plane is configured but not armed
     remediation = None
     probes = None  # Callable[[int], list]: last-N cycle summaries
+    history = None  # Callable[[], dict]: the WAL's segment inventory
+    slo = None  # Callable[[], dict]: the SLO engine's detail
+    slo_health = None  # Callable[[], dict]: the SLO verdict, folded into the /healthz body
+    node_health = None  # Callable[[], dict]: the health plane's detail
+    node_health_fold = None  # Callable[[], dict]: its verdict, folded into the /healthz body
     auth_token: Optional[str] = None
 
     def log_message(self, *a):
@@ -229,6 +239,10 @@ class _StatusHandler(BaseHTTPRequestHandler):
                 body["egress"] = egress
             if serve is not None:
                 body["serve"] = serve
+            if self.slo_health is not None:
+                body["slo"] = self.slo_health()
+            if self.node_health_fold is not None:
+                body["health"] = self.node_health_fold()
             self._json(200 if alive else 503, body)
         elif parsed.path == "/debug/events":
             if self.audit is None:
@@ -281,6 +295,21 @@ class _StatusHandler(BaseHTTPRequestHandler):
                 self._json(404, {"error": "freshness plane not wired (serve.enabled)"})
                 return
             self._json(200, {"freshness": self.freshness()})
+        elif parsed.path == "/debug/history":
+            if self.history is None:
+                self._json(404, {"error": "history plane not enabled (history.enabled)"})
+                return
+            self._json(200, {"history": self.history()})
+        elif parsed.path == "/debug/slo":
+            if self.slo is None:
+                self._json(404, {"error": "SLO engine not enabled (slo.enabled)"})
+                return
+            self._json(200, {"slo": self.slo()})
+        elif parsed.path == "/debug/health":
+            if self.node_health is None:
+                self._json(404, {"error": "health plane not enabled (health.enabled)"})
+                return
+            self._json(200, {"health": self.node_health()})
         else:
             self._json(404, {"error": f"no route {self.path}"})
 
@@ -305,6 +334,11 @@ class StatusServer:
         trend: Optional[Callable[[], dict]] = None,
         remediation: Optional[Callable[[], Optional[dict]]] = None,
         probes: Optional[Callable[[int], list]] = None,
+        history: Optional[Callable[[], dict]] = None,
+        slo: Optional[Callable[[], dict]] = None,
+        slo_health: Optional[Callable[[], dict]] = None,
+        node_health: Optional[Callable[[], dict]] = None,
+        node_health_fold: Optional[Callable[[], dict]] = None,
         auth_token: Optional[str] = None,
     ):
         handler = type(
@@ -323,6 +357,11 @@ class StatusServer:
                 "trend": staticmethod(trend) if trend else None,
                 "remediation": staticmethod(remediation) if remediation else None,
                 "probes": staticmethod(probes) if probes else None,
+                "history": staticmethod(history) if history else None,
+                "slo": staticmethod(slo) if slo else None,
+                "slo_health": staticmethod(slo_health) if slo_health else None,
+                "node_health": staticmethod(node_health) if node_health else None,
+                "node_health_fold": staticmethod(node_health_fold) if node_health_fold else None,
                 "auth_token": auth_token,
             },
         )

@@ -8,8 +8,9 @@ workers, and an out-of-range segment id (which must raise before any launch).
 The port's ``AnalyticsPlane`` answers the same summary and scenario bodies as
 the JAX package's on the same view contents, apart from the backend's name.
 Then the JAX package's ``tests/test_analytics.py`` runs again through the
-port, every backend on the CPU, less the tests of its JAX import probe and
-of the history plane (WAL replay analytics, ``restore()``).
+port, every backend on the CPU (the WAL replay analytics included, and the
+JAX package's ``scripts/history_replay.py`` reading a WAL the port wrote),
+less the tests of its JAX import probe.
 """
 
 import numpy as np
@@ -216,10 +217,15 @@ _REWRITES = [
      "from k8s_watcher_tpu.analytics import backend as backend_mod\n\n\n"
      "def resolve_backend(preference='auto'):\n"
      "    return backend_mod.resolve_backend(preference, device='cpu')\n"),
-    # the replay modules of the history plane are not ported
-    ("    batched_replay_verdicts,\n    comparable,\n", ""),
-    ("    sequential_replay_verdicts,\n    tables_from_objects,\n    verdicts_from_objects,\n",
-     "    tables_from_objects,\n"),
+    # the replays of a WAL evaluate on the CPU here
+    ("    batched_replay_verdicts,\n    comparable,\n", "    comparable,\n"),
+    ("    sequential_replay_verdicts,\n    tables_from_objects,\n    verdicts_from_objects,\n)\n",
+     "    sequential_replay_verdicts,\n    tables_from_objects,\n)\n"
+     "from k8s_watcher_tpu.analytics import replay as _replay_mod\n\n\n"
+     "def batched_replay_verdicts(*args, **kwargs):\n"
+     "    return _replay_mod.batched_replay_verdicts(*args, device='cpu', **kwargs)\n\n\n"
+     "def verdicts_from_objects(*args, **kwargs):\n"
+     "    return _replay_mod.verdicts_from_objects(*args, device='cpu', **kwargs)\n"),
     ("from k8s_watcher_tpu.config.schema import AnalyticsConfig, AppConfig, SchemaError",
      "from k8s_watcher_tpu_torch.config import AnalyticsConfig, AppConfig, ConfigError as SchemaError"),
     # the port's device backend is torch; ``jax`` names it too
@@ -235,13 +241,5 @@ globals().update(replayed_tests(
         # probe and never falls back (test_auto_without_cuda_raises_and_never_degrades)
         "TestBackend.test_broken_jax_degrades_to_numpy",
         "TestBackendParity.test_numpy_path_equals_jax_results_when_jax_is_absent",
-        # restore() of a WAL-recovered state: the history plane
-        "TestAnalyticsPlane.test_view_restart_triggers_full_reencode",
-        "TestSnapshotTables.test_restore_invalidates_cache",
-        # analytics/replay.py and scripts/history_replay.py over a WAL
-        "TestReplayAnalytics.test_batched_equals_sequential",
-        "TestReplayAnalytics.test_at_rv_time_travel",
-        "TestReplayAnalytics.test_verdicts_from_objects_shape",
-        "TestReplayAnalytics.test_history_replay_script_round_trip",
     ),
 ))

@@ -17,6 +17,11 @@ and every unported plane is refused at construction. With the serving and
 analytics planes on, both apps' ``/serve/fleet`` snapshots and
 ``/serve/analytics`` bodies agree, and the JAX package's ``ResumeLoop``
 following the port's serve plane through the churn folds to the same state.
+With the history, health and SLO planes on as well, both apps answer the same
+``?at=`` reads, list the same objectives at ``/debug/slo``, fold both
+verdicts into the ``/healthz`` body, and after a stop and a restart from
+their WALs resume a token minted before the stop with deltas, not a
+re-snapshot. ``development`` builds every plane it enables, as shipped.
 """
 
 import copy
@@ -91,8 +96,9 @@ def small_cluster(seed, namespace):
 
 
 def make_config(pkg, environment, server_url, workdir, *, status_port=0, probe=False, coalesce=True, planes=()):
-    """``planes``: of serve and analytics, the ones to leave as the environment
-    sets them (on an ephemeral serve port); the rest are switched off."""
+    """``planes``: of serve, history, analytics, health and SLO, the ones to
+    leave as the environment sets them (serve on an ephemeral port, the WAL
+    under ``workdir``); the rest are switched off."""
     workdir.mkdir(parents=True, exist_ok=True)
     kubeconfig = workdir / "kubeconfig.json"
     kubeconfig.write_text(json.dumps({
@@ -101,7 +107,8 @@ def make_config(pkg, environment, server_url, workdir, *, status_port=0, probe=F
         "contexts": [{"name": "m", "context": {"cluster": "m", "user": "m"}}],
         "users": [{"name": "m", "user": {"token": "t"}}],
     }))
-    env = {"WATCHER_STATUS_TOKEN": TOKEN, "WATCHER_CHECKPOINT_PATH": str(workdir / "ck.json")}
+    env = {"WATCHER_STATUS_TOKEN": TOKEN, "WATCHER_CHECKPOINT_PATH": str(workdir / "ck.json"),
+           "WATCHER_HISTORY_DIR": str(workdir / "history")}
     config = (ref_load_config if pkg == "ref" else load_app_config)(environment, CONFIG_DIR, env=env)
     off = {name: dataclasses.replace(getattr(config, name), enabled=False)
            for name in ("serve", "history", "analytics", "health", "slo") if name not in planes}
@@ -464,3 +471,90 @@ def test_serve_and_analytics_planes_answer_alike(tmp_path):
     assert evaluations["port"]["scenarios"][1]["slices_losing_quorum"]  # draining the cluster breaks quorums
     assert health["port"][0] == 200 and health["port"][1]["view_rv"] == rv
     assert max(stop_s.values()) < 10.0
+
+
+def _watch_once(app, rv, instance):
+    return _get(app.serve.port, f"/serve/fleet?watch=1&once=1&timeout=0.2&rv={rv}&view={instance}", TOKEN)
+
+
+def test_history_health_and_slo_planes_answer_alike(tmp_path):
+    cluster = small_cluster(6, "production")
+    sides = {pkg: Side(pkg, cluster, "production", tmp_path, status_port=free_port(),
+                       planes=("serve", "history", "health", "slo")) for pkg in ("ref", "port")}
+    fast = {}
+    for pkg, side in sides.items():
+        config = side.config()
+        assert config.history.enabled and config.health.enabled and config.slo.enabled
+        fast[pkg] = dataclasses.replace(config, health=dataclasses.replace(config.health, tick_seconds=0.2),
+                                        slo=dataclasses.replace(config.slo, tick_seconds=0.2))
+        side.config = lambda _config=fast[pkg]: _config
+    try:
+        for side in sides.values():
+            side.start()
+        for side in sides.values():
+            side.wait_synced()
+            side.apply(cluster.churn[:300])
+        for side in sides.values():
+            side.wait_synced()
+        token = {pkg: (side.app.serve.view.rv, side.app.serve.view.instance) for pkg, side in sides.items()}
+        assert token["port"][0] == token["ref"][0]
+        for side in sides.values():
+            side.apply(cluster.churn[300:])
+        for side in sides.values():
+            side.wait_synced()
+        for side in sides.values():
+            side.app.history.flush(WAIT_S)
+        at = {pkg: _get(side.app.serve.port, f"/serve/fleet?at={token[pkg][0]}", TOKEN)
+              for pkg, side in sides.items()}
+        time.sleep(0.5)  # a few health and SLO ticks
+        routes = {pkg: {route: _get(side.app.config.watcher.status_port, route, TOKEN)
+                        for route in ("/healthz", "/debug/history", "/debug/health", "/debug/slo")}
+                  for pkg, side in sides.items()}
+        rv_before = {pkg: side.app.serve.view.rv for pkg, side in sides.items()}
+        stop_s = {pkg: side.stop() for pkg, side in sides.items()}
+        # the restart: the views continue from their WALs
+        for side in sides.values():
+            side.start()
+        restored = {pkg: (side.app.serve.view.instance, side.app.history.recovered.clean)
+                    for pkg, side in sides.items()}
+        for side in sides.values():
+            side.wait_synced()
+        resumed = {pkg: _watch_once(side.app, *token[pkg]) for pkg, side in sides.items()}
+        stop_s2 = {pkg: side.stop() for pkg, side in sides.items()}
+    finally:
+        for side in sides.values():
+            side.close()
+    for pkg in ("ref", "port"):
+        assert at[pkg][0] == 200 and at[pkg][1]["historical"] is True, at[pkg]
+        assert restored[pkg] == (token[pkg][1], True)
+        status, body = resumed[pkg]
+        assert status == 200 and body["from_rv"] == token[pkg][0] and not body["compacted"], body
+        assert len(body["items"]) == body["to_rv"] - token[pkg][0] >= rv_before[pkg] - token[pkg][0] > 0
+        health_status, health = routes[pkg]["/healthz"]
+        assert health_status == 200 and health["alive"] is True
+        assert {"slo", "health"} <= set(health) and health["serve"]["history"]["writer_alive"] is True
+        for route in ("/debug/history", "/debug/health", "/debug/slo"):
+            assert routes[pkg][route][0] == 200, (pkg, route, routes[pkg][route])
+    assert {k: v for k, v in at["port"][1].items() if k != "view"} == \
+        {k: v for k, v in at["ref"][1].items() if k != "view"}
+    # the rv order of pod and slice deltas follows the ingest's batching;
+    # what the resumed deltas fold to does not
+    folded = {pkg: {(i["kind"], i["key"]): i.get("object") for i in resumed[pkg][1]["items"]} for pkg in sides}
+    assert folded["port"] == folded["ref"]
+    slo = {pkg: routes[pkg]["/debug/slo"][1]["slo"] for pkg in sides}
+    assert sorted(slo["port"]["objectives"]) == sorted(slo["ref"]["objectives"]) == sorted(
+        o.name for o in fast["port"].slo.objectives)
+    for name, result in slo["port"]["objectives"].items():
+        assert set(result["windows"]) == {"fast", "slow"} and result["kind"] == slo["ref"]["objectives"][name]["kind"]
+    history = routes["port"]["/debug/history"][1]["history"]
+    assert history["writer_alive"] and history["durable_rv"] == rv_before["port"]
+    assert max(stop_s.values()) < 10.0 and max(stop_s2.values()) < 10.0
+
+
+def test_development_as_shipped_builds_every_plane_it_enables(tmp_path):
+    config = load_app_config("development", CONFIG_DIR, env={})
+    assert config.health.enabled and config.slo.enabled and config.serve.enabled and config.analytics.enabled
+    app = WatcherApp(config, notifier=Recorder(), device="cpu", expected_platform="cpu")
+    assert app.health is not None and app.slo is not None and app.analytics is not None
+    assert app.history is None and not config.history.enabled
+    assert app.health.view is app.serve.view

@@ -8,11 +8,12 @@ through the ``probe_agent`` entry point with the ``production`` settings
 (the per-link walk on), and reports what ``sys.modules``
 holds afterwards. A second test runs the entry point's loop mode as a
 process, against a local receiver, and stops it with SIGINT. A third runs
-the watcher, ``python -m k8s_watcher_tpu_torch development --cpu``, on a
-temporary config with the planes the port does not carry switched off and
-the probe, the serving plane and the analytics plane on: it must notify,
-answer ``/healthz``, ``/serve/fleet`` and ``/serve/analytics``, hold no JAX
-module, and exit 0 within 10 s of SIGINT.
+the watcher, ``python -m k8s_watcher_tpu_torch development --cpu``, with the
+``development`` planes as shipped (serve, analytics, health, SLO) on a
+temporary config that points it at a local receiver and turns the probe on:
+it must notify, answer ``/healthz`` (with the health and SLO folds),
+``/serve/fleet`` and ``/serve/analytics``, hold no JAX module, and exit 0
+within 10 s of SIGINT.
 """
 
 import json
@@ -182,9 +183,9 @@ def test_watcher_entry_point_runs_on_the_cpu_and_stops_on_sigint(tmp_path):
     overlay = yaml.safe_load((REPO / "config" / "development.yaml").read_text())
     overlay["clusterapi"]["base_url"] = f"http://127.0.0.1:{receiver.server_address[1]}"
     overlay["watcher"]["status_port"] = status_port
-    for plane in ("history", "health", "slo"):
-        overlay.setdefault(plane, {})["enabled"] = False
+    # every plane as shipped: serve, analytics, health and SLO on
     assert overlay["serve"]["enabled"] and overlay["analytics"]["enabled"]
+    assert overlay["health"]["enabled"] and overlay["slo"]["enabled"]
     overlay["serve"]["port"] = serve_port
     overlay.setdefault("tpu", {})["probe"] = {
         "enabled": True, "interval_seconds": 0.2, "hbm_bytes": 2 << 20, "matmul_size": 64, "payload_bytes": 4096,
@@ -227,6 +228,8 @@ def test_watcher_entry_point_runs_on_the_cpu_and_stops_on_sigint(tmp_path):
     assert stop_s < 10.0
     assert healthz is not None and healthz[0] == 200 and healthz[1]["alive"] is True, out[-3000:]
     assert healthz[1]["serve"]["healthy"] is True and healthz[1]["serve"]["started"] is True
+    # the health plane's and the SLO engine's verdicts ride the body
+    assert healthz[1]["health"]["thread_alive"] is True and healthz[1]["slo"]["thread_alive"] is True
     # the probe's verdict is live; the fake pod's lifecycle (added, then
     # deleted) shows in the rv
     assert "probe" in {o["kind"] for o in fleet["objects"]} and fleet["rv"] > len(fleet["objects"]), fleet

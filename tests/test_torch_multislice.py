@@ -34,6 +34,11 @@ from test_torch_ranks import run_ranks
 COVERAGE_FLOOR_MS = 250.0
 SLOW_FLOOR_MS = 10.0
 SLOW_ITERS = 2000
+# The JAX mesh's slow device gets a fault of the same size (5000 matmuls on
+# its device thread: ~37 ms a hop) and the same floor: at the walk's default
+# 0.2 ms floor the verdict sits inside the healthy pairs' 0.1-0.3 ms spread,
+# and a loaded host flagged a healthy pair (slice0-slice3) beside slice 1's.
+REF_SLOW_ITERS = 5000
 
 _WORKER = """
 new_group = dist.new_group
@@ -232,7 +237,8 @@ class TestFourSlicePairWalk:
         # rank 3 lives in slice 1 of the 4-slice grid, as device 3 does in
         # the JAX mesh: every pair touching slice 1 stretches
         want = ref_run_multislice_probe(
-            ref_four, iters=3, inner_iters=4, fault=RefFaultSpec(slow_device_id=3, slow_iters=800))
+            ref_four, iters=3, inner_iters=4, pair_rtt_floor_ms=SLOW_FLOOR_MS,
+            fault=RefFaultSpec(slow_device_id=3, slow_iters=REF_SLOW_ITERS))
         assert want.dcn_suspect_slices == [1]
         want_names = {s["name"] for s in want.suspect_pairs}
         assert want_names == {"slice0-slice1", "slice1-slice2", "slice1-slice3"}

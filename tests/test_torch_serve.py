@@ -1,9 +1,8 @@
 """The port's serving plane held against the JAX package's.
 
 The JAX package's ``tests/test_serve.py`` and ``tests/test_columnar_view.py``
-run again through the port (``test_torch_replay``), less the tests of planes
-the port does not carry yet (the history WAL and the federation merge; see
-``ROADMAP.md`` section C). Then the same seeded churn goes into both
+run again through the port (``test_torch_replay``), less the test of the
+federation merge, which the port does not carry yet (``ROADMAP.md`` section C). Then the same seeded churn goes into both
 packages' ``FleetView`` (the columnar core and the dict core) and through both
 pipelines' publish hook: the snapshot bodies and the wire frames must be
 byte-equal in both codecs. Last, the JAX package's ``FleetClient`` and
@@ -37,12 +36,7 @@ _SCHEMA = [("from k8s_watcher_tpu.config.schema import", "from k8s_watcher_tpu_t
 _serve = replay("test_serve.py",
                 rewrites=_SCHEMA + [("SchemaError, ServeConfig", "ConfigError as SchemaError, ServeConfig")])
 serve_http = _serve.serve_http  # the replayed HTTP tests' fixture
-globals().update(replayed_tests(
-    _serve,
-    # ?at= reads and the WAL hand-off belong to the history plane
-    leave_out=("TestAtReconstructionCache.test_repeat_at_reads_hit_the_lru",
-               "TestApplyBatch.test_dense_rvs_dedup_single_wakeup_one_history_publish"),
-))
+globals().update(replayed_tests(_serve))
 globals().update(replayed_tests(
     replay("test_columnar_view.py", rewrites=_SCHEMA + [
         ("    SchemaError,\n", "    ConfigError as SchemaError,\n"),

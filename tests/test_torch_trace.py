@@ -6,7 +6,8 @@ same sample rate: the head-sampling decisions (which uids carry a trace, on
 which shard), the ring's entries (outcome, kind, shard, lane, sampling, stage
 names in order) and the per-stage histogram counts must match. The
 reference's own tracing scenarios (``tests/test_trace.py``) are replayed
-through the port, except those of the serving and federation planes.
+through the port, the serve wire's ``?trace=1`` frames included, except the
+scenarios of the federation plane.
 """
 
 import numpy as np
@@ -121,7 +122,7 @@ globals().update(replayed_tests(
     replay("test_trace.py", rewrites=_REWRITES),
     only=("TestSamplerDeterminism", "TestAnomalyAlwaysSamples", "TestSpanTreeCompleteness", "TestHotPathNoAlloc",
           "TestDebugTraceRoute", "TestPrometheusGolden", "TestEgressAuditOutcomes", "TestHealthzEgressLiveness",
-          "TestTraceIdInLogs", "TestDebugTraceHardening"),
+          "TestTraceIdInLogs", "TestDebugTraceHardening", "TestFleetStageVocabulary", "TestTracedWireFrames"),
     # /debug/trace/diagnosis belongs to the federation plane
     leave_out=("TestDebugTraceHardening.test_diagnosis_route_404_when_not_wired_200_when_wired",),
 ))
