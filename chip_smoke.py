@@ -30,11 +30,16 @@ Phases, each fatal on failure (exit code 1, no result line):
    kernel launched, one POSTed probe payload per cycle, the status routes
    answering, no node patched, and the stop within 10 s;
 9. the watcher: ``python -m k8s_watcher_tpu_torch production``'s
-   ``WatcherApp`` (the serving, analytics, history, health and SLO planes on;
-   leader election and the node watch off; GPU backend, 1 s probe interval)
-   against a seeded cluster of
+   ``WatcherApp`` with every plane as shipped (leader election, the node
+   watch, serving, analytics, history, health and SLO; GPU backend, node
+   selector and accelerator label on the GPU operator's node labels, 1 s
+   probe interval) against a seeded cluster of
    2,048 GPU nodes and 50,000 pods that the script serves on 127.0.0.1
-   (paged LIST, then 60,000 watch events); what it POSTs must equal a plain
+   (paged LIST, then 60,000 watch events, with node churn at a third and at
+   two thirds: 16 JobSet nodes NotReady and back, one deleted); the Lease is
+   created before the first pod LIST, renewed, released by the stop and taken
+   again by the restart; the node payloads equal their plain fold and every
+   slice transition the node churn causes is POSTed; what it POSTs must equal a plain
    fold of the same events under the ``production`` rules, the churn must
    drain without loss, at least 3 in-process probe cycles must run healthy
    with every kernel launched, the status routes must answer, the stop must
@@ -61,7 +66,15 @@ Phases, each fatal on failure (exit code 1, no result line):
    workers (131,072 pods over 3 clusters and 16,384 nodes), where
    ``summary()`` and a 32-scenario ``evaluate()`` on the card, on the numpy
    backend and through the plain reference must agree; with their times, the
-   segment sums' CUDA-event time and the share of the host-to-device copies.
+   segment sums' CUDA-event time and the share of the host-to-device copies;
+11. ``staging`` as shipped on the same seeded cluster: two shard streams in
+   two spawned reader processes on the native prefilter (``fastscan.cpp``,
+   built with ``g++``), one reader SIGKILLed mid-churn and respawned from its
+   shard checkpoints, what is POSTed equal to the plain fold under the
+   staging rules (at-least-once: the last payload per pod and slice), the
+   node watch, ``/debug/processes``, 3 healthy probe cycles with every kernel
+   launched, a stop under 10 s that leaves no reader process; it prints the
+   LIST and churn times, the frames per second and the prefiltered share.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -212,6 +225,13 @@ JOBSET_LABEL = "jobset.sigs.k8s.io/jobset-name"
 REPLICATED_LABEL = "jobset.sigs.k8s.io/replicatedjob-name"
 INDEX_LABEL = "apps.kubernetes.io/pod-index"
 STATUS_TOKEN = "chip-smoke-status-token"
+# the GPU node labels of the NVIDIA GPU operator's feature discovery; the
+# watcher's node selector and accelerator label are pointed at them
+GPU_PRESENT_LABEL = "nvidia.com/gpu.present"
+GPU_PRODUCT_LABEL = "nvidia.com/gpu.product"
+GPU_PRODUCT = "NVIDIA-H100-80GB-HBM3"
+CPU_NODES = 8
+LEASE_PATH = "/apis/coordination.k8s.io/v1/namespaces/"
 T0 = "2026-10-01T00:00:00Z"
 CHURN_DRAIN_LIMIT_S = 120.0
 WATCHER_PROBE_CYCLES = 3
@@ -330,11 +350,20 @@ class GpuCluster:
     of all pods in ``batch`` (which the watcher does not watch; 1% of those
     request GPUs), and the rest of the churn is MODIFIED status churn
     (restarts, readiness flips) on pods without GPUs. ``down_deletions`` are
-    GPU workers of healthy JobSets to delete while the watcher is down."""
+    GPU workers of healthy JobSets to delete while the watcher is down.
+
+    The node churn (``node_steps``, from its own seeded stream): at a third
+    of the pod churn the nodes of ``node_flips`` workers of healthy JobSets go
+    ``Ready=False`` and the node of one more healthy JobSet's worker is
+    deleted; at two thirds the flipped nodes come back ``Ready``. Each step is
+    ``(position, type, node, ready)``: the node event lands before
+    ``churn[position]``. ``namespaces`` are the watched namespaces the
+    services spread over."""
 
     def __init__(self, seed: int = 0, *, nodes: int = 2048, pods: int = 50000, jobsets: int = 256,
                  workers: int = 8, churn: int = 60000, failures: int = 32, batch_share: float = 0.10,
-                 down_deletions: int = 16, jobset_namespace: str = "production"):
+                 down_deletions: int = 16, jobset_namespace: str = "production",
+                 namespaces=WATCHED_NAMESPACES, node_flips: int = 16):
         import random
 
         rng = random.Random(seed)
@@ -366,7 +395,7 @@ class GpuCluster:
             if i < n_batch:
                 ns, gpus = UNWATCHED_NAMESPACE, (8 if i % 100 == 0 else 0)
             else:
-                ns, gpus = WATCHED_NAMESPACES[i % len(WATCHED_NAMESPACES)], 0
+                ns, gpus = namespaces[i % len(namespaces)], 0
             app = f"svc-{i % 997:03d}"
             specs.append(new_pod(f"{app}-{rng.getrandbits(40):010x}", ns, gpus,
                                  {"app": app, "pod-template-hash": "7d4b9c"}, "ReplicaSet", f"{app}-7d4b9c",
@@ -417,6 +446,48 @@ class GpuCluster:
         self.last_rv = self.list_rv + len(self.churn)
         healthy = [m for key, members in jobset_workers.items() if key not in self.failed_jobsets for m in members]
         self.down_deletions = [(s.namespace, s.name, s.uid) for s in rng.sample(healthy, down_deletions)]
+        # the node churn: one worker's node in each of node_flips + 1 healthy
+        # JobSets (one JobSet a node: every JobSet's workers sit on their own)
+        node_rng = random.Random(seed + 1)
+        healthy_sets = sorted(k for k in jobset_workers if k not in self.failed_jobsets)
+        picked = [node_rng.choice(jobset_workers[k]).spec["nodeName"]
+                  for k in node_rng.sample(healthy_sets, node_flips + 1)]
+        self.flipped_nodes, self.deleted_node = sorted(picked[:-1]), picked[-1]
+        first, second = len(self.churn) // 3, 2 * len(self.churn) // 3
+        self.node_steps = ([(first, "MODIFIED", n, False) for n in self.flipped_nodes]
+                           + [(first, "DELETED", self.deleted_node, None)]
+                           + [(second, "MODIFIED", n, True) for n in self.flipped_nodes])
+
+    def node_names(self):
+        """Every node of the cluster: the GPU nodes, then ``CPU_NODES`` nodes
+        without GPUs (the watcher's node selector leaves them out)."""
+        return [f"gpu-node-{i:04d}" for i in range(self.nodes)] + [f"cpu-node-{i}" for i in range(CPU_NODES)]
+
+    @staticmethod
+    def node(name: str, ready: bool, rv: int) -> dict:
+        """A Node as the apiserver serves it: the GPU operator's labels and
+        ``nvidia.com/gpu: 8`` capacity on the GPU nodes, and a Ready
+        condition."""
+        gpu = name.startswith("gpu-")
+        labels = {"kubernetes.io/hostname": name, "kubernetes.io/os": "linux"}
+        capacity = {"cpu": "96", "memory": "1056Gi", "pods": "110"}
+        if gpu:
+            labels.update({GPU_PRESENT_LABEL: "true", GPU_PRODUCT_LABEL: GPU_PRODUCT, "nvidia.com/gpu.count": "8"})
+            capacity[GPU_KEY] = "8"
+        conditions = [
+            {"type": kind, "status": "False", "reason": f"KubeletHas{suffix}", "message": f"kubelet has {text}",
+             "lastHeartbeatTime": T0, "lastTransitionTime": T0}
+            for kind, suffix, text in (("MemoryPressure", "SufficientMemory", "sufficient memory available"),
+                                       ("DiskPressure", "NoDiskPressure", "no disk pressure"))
+        ] + [{"type": "Ready", "status": "True" if ready else "False",
+              "reason": "KubeletReady" if ready else "KubeletNotReady",
+              "message": "kubelet is posting ready status" if ready else "Kubelet stopped posting node status.",
+              "lastHeartbeatTime": T0, "lastTransitionTime": T0}]
+        return {"apiVersion": "v1", "kind": "Node",
+                "metadata": {"name": name, "uid": f"node-{name}", "resourceVersion": str(rv), "labels": labels,
+                             "creationTimestamp": T0},
+                "spec": {"podCIDR": "10.64.0.0/24"},
+                "status": {"capacity": capacity, "allocatable": dict(capacity), "conditions": conditions}}
 
     @staticmethod
     def pods(steps):
@@ -427,12 +498,14 @@ class GpuCluster:
     def facts(steps):
         """What the fold reads of each step, as ``facts_of`` reads it of a pod."""
         return [(kind, spec.namespace, spec.name, spec.uid, spec.gpus, spec.jobset, phase,
-                 (("main", ready, restarts), ("log-agent", ready, 0))) for kind, spec, phase, ready, restarts, _ in steps]
+                 (("main", ready, restarts), ("log-agent", ready, 0)), spec.spec["nodeName"])
+                for kind, spec, phase, ready, restarts, _ in steps]
 
 
 def facts_of(kind: str, pod: dict) -> tuple:
     """``(type, namespace, name, uid, GPUs requested, JobSet slice key or None,
-    phase, container (name, ready, restarts))`` of one watch event's pod."""
+    phase, container (name, ready, restarts), node)`` of one watch event's
+    pod."""
     meta = pod.get("metadata") or {}
     labels = meta.get("labels") or {}
     gpus = sum(int((c.get("resources") or {}).get("requests", {}).get(GPU_KEY, 0))
@@ -442,42 +515,75 @@ def facts_of(kind: str, pod: dict) -> tuple:
     ready = tuple((cs.get("name", ""), bool(cs.get("ready", False)), int(cs.get("restartCount", 0) or 0))
                   for cs in (pod.get("status") or {}).get("containerStatuses") or [])
     return (kind, meta.get("namespace", ""), meta.get("name", ""), meta.get("uid", ""), gpus, jobset,
-            (pod.get("status") or {}).get("phase", "Unknown"), ready)
+            (pod.get("status") or {}).get("phase", "Unknown"), ready, (pod.get("spec") or {}).get("nodeName"))
 
 
-def _slice_phase(members: dict, ever_ready: bool, had_members: bool) -> str:
-    """A slice's phase from its members' (phase, ready), with no expected
-    worker count (GPU JobSets carry no topology)."""
+def _slice_phase(members: dict, ever_ready: bool, had_members: bool, down=frozenset()) -> str:
+    """A slice's phase from its members' (phase, ready, node), with no
+    expected worker count (GPU JobSets carry no topology): a member that has
+    not succeeded on a node in ``down`` (NotReady, or deleted) degrades it."""
     if not members:
         return "Terminated" if had_members else "Forming"
-    phases = [phase for phase, _ in members.values()]
+    phases = [phase for phase, _, _ in members.values()]
     if any(p in ("Failed", "Unknown") for p in phases):
+        return "Degraded"
+    if any(node in down and p != "Succeeded" for p, _, node in members.values()):
         return "Degraded"
     if all(p == "Succeeded" for p in phases):
         return "Completed"
-    if all(p == "Running" and ready for p, ready in members.values()):
+    if all(p == "Running" and ready for p, ready, _ in members.values()):
         return "Ready"
     return "Degraded" if ever_ready else "Forming"
 
 
-def fold_production(facts, namespaces=WATCHED_NAMESPACES):
-    """The plain reference of what the watcher notifies under the
-    ``production`` rules, over ``facts`` in watch order: the namespace
-    filter, the GPU resource filter, and the critical gate (DELETED or a
+def fold_production(facts, namespaces=WATCHED_NAMESPACES, node_steps=(), critical=True, node_caused=None):
+    """The plain reference of what the watcher notifies, over ``facts`` in
+    watch order: the namespace filter, the GPU resource filter, and (with
+    ``critical``, the ``production`` rules) the critical gate (DELETED or a
     terminal phase) on a significant change (first sighting, phase or
-    container-status change, deletion); and each JobSet's slice phase.
+    container-status change, deletion); ``critical=False`` is the
+    ``staging`` rules, which notify every significant change. And each
+    JobSet's slice phase, with the node events of ``node_steps`` (``(position,
+    type, node, ready)``, folded before ``facts[position]``): a NotReady or
+    deleted node degrades every slice with a member on it that has not
+    succeeded, and a node back Ready restores it.
 
     Returns ``(last, transitions)``: the last pod notification per uid as
     ``(event_type, phase, namespace, name)``, and each slice key's phase
-    transitions as ``(from, to)`` pairs."""
+    transitions as ``(from, to)`` pairs. The transitions a node event causes
+    are appended to ``node_caused`` as ``(key, from, to)``."""
     last, seen, slices, transitions = {}, {}, {}, {}
-    for kind, ns, name, uid, gpus, jobset, phase, ready in facts:
+    down = set()
+    pending = sorted(node_steps, key=lambda step: step[0])
+
+    def recompute(key, st, caused=None):
+        new = _slice_phase(st["members"], st["ever_ready"], st["had"], down)
+        st["ever_ready"] = st["ever_ready"] or new == "Ready"
+        if new != st["phase"]:
+            transitions.setdefault(key, []).append((st["phase"], new))
+            if caused is not None:
+                caused.append((key, st["phase"], new))
+            st["phase"] = new
+
+    def node_event(kind, node, ready):
+        if ready:
+            down.discard(node)
+        else:
+            down.add(node)
+        for key, st in slices.items():
+            if any(n == node for _, _, n in st["members"].values()):
+                recompute(key, st, node_caused)
+
+    for i, (kind, ns, name, uid, gpus, jobset, phase, ready, node) in enumerate(facts):
+        while pending and pending[0][0] <= i:
+            node_event(*pending.pop(0)[1:])
         if (namespaces and ns not in namespaces) or not gpus:
             continue
         prev = seen.pop(uid, None) if kind == "DELETED" else seen.get(uid)
         if kind != "DELETED":
             seen[uid] = (phase, ready)
-        if (kind == "DELETED" or prev != (phase, ready)) and (kind == "DELETED" or phase in ("Failed", "Succeeded")):
+        if (kind == "DELETED" or prev != (phase, ready)) and (
+                not critical or kind == "DELETED" or phase in ("Failed", "Succeeded")):
             last[uid] = (kind, phase, ns, name)
         if jobset is None:
             continue
@@ -485,14 +591,32 @@ def fold_production(facts, namespaces=WATCHED_NAMESPACES):
         if kind == "DELETED":
             st["members"].pop(uid, None)
         else:
-            st["members"][uid] = (phase, bool(ready) and all(r for _, r, _ in ready))
+            st["members"][uid] = (phase, bool(ready) and all(r for _, r, _ in ready), node)
         st["had"] = st["had"] or bool(st["members"])
-        new = _slice_phase(st["members"], st["ever_ready"], st["had"])
-        st["ever_ready"] = st["ever_ready"] or new == "Ready"
-        if new != st["phase"]:
-            transitions.setdefault(jobset, []).append((st["phase"], new))
-            st["phase"] = new
+        recompute(jobset, st)
+    for step in pending:
+        node_event(*step[1:])
     return last, transitions
+
+
+def fold_node_payloads(node_steps, environment: str) -> dict:
+    """The plain reference of the node plane's payloads over ``node_steps``
+    (all nodes listed Ready first): a GPU node's Ready change is a
+    ``NODE_CONDITION_CHANGE``, its deletion a ``NODE_DELETED``; each payload as
+    the watcher POSTs it, without its ``event_timestamp``. Returns ``{node:
+    [payload, ...]}``."""
+    out = {}
+    for rv, (_, kind, name, ready) in enumerate(node_steps, start=2):
+        node = GpuCluster.node(name, bool(ready) if kind != "DELETED" else True, rv)
+        out.setdefault(name, []).append({
+            "event_type": "NODE_DELETED" if kind == "DELETED" else "NODE_CONDITION_CHANGE",
+            "environment": environment, "node": name, "ready": bool(ready),
+            "tpu": {"chips": 8, "accelerator": GPU_PRODUCT, "topology": None},
+            "conditions": [{k: c.get(k) for k in ("type", "status", "reason", "message")}
+                           for c in node["status"]["conditions"]],
+            "unschedulable": False,
+        })
+    return out
 
 
 def fold_view(steps, namespaces=WATCHED_NAMESPACES):
@@ -845,14 +969,28 @@ def analytics_timings(torch, view, raw, config, dev, *, reference_calls: int = 5
 
 
 class ClusterStub:
-    """The apiserver side of phase 9: ``GET /version``, the node list, the pod
-    LIST in ``limit`` pages with ``continue`` tokens (each list a snapshot of
-    the objects at its first page), and the pod WATCH: from the LIST's
-    resourceVersion it writes the whole churn as fast as it can, then keeps
-    the stream open with a BOOKMARK a second. A watch below ``gone_below``
-    gets 410 Gone (history compacted)."""
+    """The apiserver side of phases 9 and 11.
 
-    def __init__(self, cluster: GpuCluster):
+    - ``GET /version``.
+    - Pods: the LIST in ``limit`` pages with ``continue`` tokens (each list a
+      snapshot of the objects at its first page), and the WATCH. Every watch
+      from the LIST's resourceVersion or later gets the churn after its rv as
+      fast as the stub can write it (a stock apiserver ignores the shard
+      selector, so each shard stream gets all of it), then a BOOKMARK a
+      second. The objects a LIST returns follow the furthest watch. The churn
+      stops at each position of ``pauses`` until its event is set. A watch
+      below ``gone_below`` gets 410 Gone (history compacted).
+    - Nodes: the LIST (paged, ``labelSelector`` terms ``key`` and
+      ``key=value``) and the WATCH, which carries the node events the script
+      hands to ``emit_nodes``.
+    - Leases (``coordination.k8s.io/v1``): GET, POST (409 when it exists) and
+      PUT (409 when ``metadata.resourceVersion`` is stale); every write is
+      logged with its time.
+    - Node PATCHes are counted and answered 404."""
+
+    def __init__(self, cluster: GpuCluster, pauses=()):
+        import zlib
+
         self.cluster = cluster
         self.lock = threading.Lock()
         self.objects = {spec.uid: spec.encode(rv, phase, ready, restarts)
@@ -860,17 +998,35 @@ class ClusterStub:
         self.pod_bytes = sum(len(b) for b in self.objects.values())
         self.churn = [(kind, spec.uid, spec.encode(rv, phase, ready, restarts))
                       for kind, spec, phase, ready, restarts, rv in cluster.churn]
+        # (carries the GPU key, crc32 of the uid): what a shard stream's
+        # foreign GPU frames are
+        self.churn_keys = [(bool(spec.gpus), zlib.crc32(spec.uid.encode())) for _, spec, *_ in cluster.churn]
+        self.published = 0  # churn[:published] is folded into objects
         self.rv = cluster.list_rv
         self.gone_below = 0
-        self.node_list = json.dumps({"kind": "NodeList", "apiVersion": "v1", "metadata": {"resourceVersion": "1"},
-                                     "items": [{"metadata": {"name": f"gpu-node-{i:04d}"}, "spec": {}}
-                                               for i in range(cluster.nodes)]}).encode()
+        self.pauses = {position: threading.Event() for position in pauses}
+        self.paused_at = None
+        self.paused_s = 0.0  # the churn's time standing at its pauses
         self.snapshots = {}
         self.list_pages = 0
+        self.pod_lists = 0
+        self.first_pod_list_t = None
         self.churn_t0 = self.churn_t1 = None
         self.churn_done = threading.Event()
         self.closing = threading.Event()
         self.patches = []  # node PATCHes: the dry-run actuator must send none
+        self.watches = []  # (resourceVersion, shard selector) of each pod watch
+        self.foreign_written = {}  # shard selector -> other shards' GPU frames written to it
+        self.frames_written = 0  # churn frames written, over every pod watch
+        self.nodes = {name: GpuCluster.node(name, True, 1) for name in cluster.node_names()}
+        self.node_rv = 1
+        self.node_events = []  # (rv, frame bytes)
+        self.node_cond = threading.Condition()
+        self.leases = {}
+        self.lease_rv = 0
+        self.lease_log = []  # (monotonic time, method, spec)
+
+    # -- pods ----------------------------------------------------------------
 
     def page(self, params: dict) -> bytes:
         limit = int(params.get("limit") or 0) or len(self.objects)
@@ -880,22 +1036,25 @@ class ClusterStub:
                 list_id, offset = (int(x) for x in token.split(":"))
                 items, rv = self.snapshots[list_id]
             else:
-                list_id, offset = len(self.snapshots), 0
+                list_id, offset = self.pod_lists, 0
                 items, rv = list(self.objects.values()), self.rv
                 self.snapshots[list_id] = (items, rv)
+                self.pod_lists += 1
+                if self.first_pod_list_t is None:
+                    self.first_pod_list_t = time.monotonic()
             self.list_pages += 1
         end = offset + limit
         more = f',"continue":"{list_id}:{end}"' if end < len(items) else ""
         if not more:
-            self.snapshots.pop(list_id, None)
+            with self.lock:
+                self.snapshots.pop(list_id, None)
         return (f'{{"kind":"PodList","apiVersion":"v1","metadata":{{"resourceVersion":"{rv}"{more}}},"items":['
                 .encode() + b",".join(items[offset:end]) + b"]}")
 
-    def watch(self, handler, params: dict) -> None:
-        rv = int(params.get("resourceVersion") or 0)
-        if rv < self.gone_below:
-            handler.answer(410, {"kind": "Status", "code": 410, "message": "too old resource version"})
-            return
+    def release(self, position: int) -> None:
+        self.pauses[position].set()
+
+    def _chunked(self, handler):
         handler.send_response(200)
         handler.send_header("Content-Type", "application/json")
         handler.send_header("Transfer-Encoding", "chunked")
@@ -905,27 +1064,59 @@ class ClusterStub:
         def write(data: bytes) -> None:
             out.write(b"%x\r\n%s\r\n" % (len(data), data))
 
-        deadline = time.monotonic() + int(params.get("timeoutSeconds") or 300)
-        try:
-            if rv == self.cluster.list_rv and self.churn_t0 is None:
+        return out, write
+
+    def watch(self, handler, params: dict) -> None:
+        rv = int(params.get("resourceVersion") or 0)
+        list_rv = self.cluster.list_rv
+        if rv < max(self.gone_below, list_rv):
+            handler.answer(410, {"kind": "Status", "code": 410, "message": "too old resource version"})
+            return
+        shard = params.get("shard")
+        index, shards = (int(x) for x in shard.split("/")) if shard else (0, 1)
+        with self.lock:
+            self.watches.append((rv, shard))
+            if rv == list_rv and self.churn_t0 is None:
                 self.churn_t0 = time.monotonic()
-                for i in range(0, len(self.churn), 256):
-                    block = self.churn[i:i + 256]
-                    write(b"".join(b'{"type":"%s","object":%s}\n' % (kind.encode(), body) for kind, _, body in block))
-                    with self.lock:
-                        for kind, uid, body in block:
+        out, write = self._chunked(handler)
+        deadline = time.monotonic() + int(params.get("timeoutSeconds") or 300)
+        position = min(rv - list_rv, len(self.churn))
+        stops = sorted(p for p in self.pauses if p >= position) + [len(self.churn)]
+        try:
+            while position < len(self.churn):
+                end = min(position + 256, stops[0])
+                if end == position:  # a pause: wait for the script's node events
+                    t0 = time.monotonic()
+                    self.paused_at = position
+                    self.pauses[stops.pop(0)].wait(180)
+                    self.paused_at = None
+                    self.paused_s += time.monotonic() - t0
+                    continue
+                block = self.churn[position:end]
+                write(b"".join(b'{"type":"%s","object":%s}\n' % (kind.encode(), body) for kind, _, body in block))
+                foreign = sum(1 for gpu, crc in self.churn_keys[position:end] if gpu and crc % shards != index) \
+                    if shard else 0
+                with self.lock:
+                    self.frames_written += len(block)
+                    if shard:
+                        self.foreign_written[shard] = self.foreign_written.get(shard, 0) + foreign
+                    if end > self.published:
+                        for kind, uid, body in self.churn[self.published:end]:
                             if kind == "DELETED":
                                 self.objects.pop(uid, None)
                             else:
                                 self.objects[uid] = body
-                        self.rv = self.cluster.last_rv if i + 256 >= len(self.churn) else self.rv + len(block)
-                self.churn_t1 = time.monotonic()
-                self.churn_done.set()
+                        self.published = end
+                        self.rv = list_rv + end
+                        if end == len(self.churn):
+                            self.churn_t1 = time.monotonic()
+                            self.churn_done.set()
+                position = end
             while not self.closing.wait(1.0) and time.monotonic() < deadline:
                 write(b'{"type":"BOOKMARK","object":{"kind":"Pod","metadata":{"resourceVersion":"%d"}}}\n' % self.rv)
             out.write(b"0\r\n\r\n")
         except (BrokenPipeError, ConnectionResetError):
-            pass  # the watcher closed the stream (stop or reconnect)
+            pass  # the watcher closed the stream (stop, reconnect or a killed reader)
 
     def delete_while_down(self, uids) -> None:
         """Delete pods with no watch to see it, and compact the history past
@@ -935,6 +1126,93 @@ class ClusterStub:
                 self.objects.pop(uid, None)
             self.rv += len(uids)
             self.gone_below = self.rv
+
+    # -- nodes ---------------------------------------------------------------
+
+    @staticmethod
+    def _selected(node: dict, selector: str) -> bool:
+        labels = node["metadata"]["labels"]
+        for term in filter(None, (t.strip() for t in selector.split(","))):
+            key, eq, value = term.partition("=")
+            if key not in labels or (eq and labels[key] != value):
+                return False
+        return True
+
+    def node_page(self, params: dict) -> bytes:
+        selector = params.get("labelSelector") or ""
+        with self.node_cond:
+            items = [n for _, n in sorted(self.nodes.items()) if self._selected(n, selector)]
+            rv = self.node_rv
+        offset = int(params.get("continue") or 0)
+        limit = int(params.get("limit") or 0) or len(items)
+        body = {"kind": "NodeList", "apiVersion": "v1", "metadata": {"resourceVersion": str(rv)},
+                "items": items[offset:offset + limit]}
+        if offset + limit < len(items):
+            body["metadata"]["continue"] = str(offset + limit)
+        return json.dumps(body).encode()
+
+    def emit_nodes(self, steps) -> int:
+        """Apply node steps ``(type, name, ready)``; returns the last node rv."""
+        with self.node_cond:
+            for kind, name, ready in steps:
+                self.node_rv += 1
+                if kind == "DELETED":
+                    node = self.nodes.pop(name)
+                else:
+                    node = self.nodes[name] = GpuCluster.node(name, ready, self.node_rv)
+                frame = json.dumps({"type": kind, "object": node}).encode() + b"\n"
+                self.node_events.append((self.node_rv, frame))
+            self.node_cond.notify_all()
+            return self.node_rv
+
+    def node_watch(self, handler, params: dict) -> None:
+        rv = int(params.get("resourceVersion") or 0)
+        selector = params.get("labelSelector") or ""
+        out, write = self._chunked(handler)
+        deadline = time.monotonic() + int(params.get("timeoutSeconds") or 300)
+        try:
+            while not self.closing.is_set() and time.monotonic() < deadline:
+                with self.node_cond:
+                    if not any(r > rv for r, _ in self.node_events):
+                        self.node_cond.wait(1.0)
+                    fresh = [(r, f) for r, f in self.node_events if r > rv]
+                    latest = self.node_rv
+                if fresh:
+                    frames = [f for _, f in fresh if self._selected(json.loads(f)["object"], selector)]
+                    if frames:
+                        write(b"".join(frames))
+                    rv = fresh[-1][0]
+                else:
+                    write(b'{"type":"BOOKMARK","object":{"kind":"Node","metadata":{"resourceVersion":"%d"}}}\n'
+                          % latest)
+            out.write(b"0\r\n\r\n")
+        except (BrokenPipeError, ConnectionResetError):
+            pass
+
+    # -- leases --------------------------------------------------------------
+
+    def lease(self, method: str, path: str, body) -> tuple:
+        parts = path[len(LEASE_PATH):].split("/")  # {ns}/leases[/{name}]
+        namespace, name = parts[0], (parts[2] if len(parts) > 2 else (body or {}).get("metadata", {}).get("name"))
+        key = (namespace, name)
+        with self.lock:
+            current = self.leases.get(key)
+            if method == "GET":
+                return (200, current) if current else (404, {"kind": "Status", "code": 404})
+            if method == "POST" and current is not None:
+                return 409, {"kind": "Status", "code": 409, "reason": "AlreadyExists"}
+            if method == "PUT":
+                if current is None:
+                    return 404, {"kind": "Status", "code": 404}
+                if (body.get("metadata") or {}).get("resourceVersion") != current["metadata"]["resourceVersion"]:
+                    return 409, {"kind": "Status", "code": 409, "reason": "Conflict"}
+            self.lease_rv += 1
+            lease = {"apiVersion": "coordination.k8s.io/v1", "kind": "Lease",
+                     "metadata": {"name": name, "namespace": namespace, "resourceVersion": str(self.lease_rv)},
+                     "spec": dict(body.get("spec") or {})}
+            self.leases[key] = lease
+            self.lease_log.append((time.monotonic(), method, dict(lease["spec"])))
+            return (201 if method == "POST" else 200), lease
 
 
 class _StubHandler(BaseHTTPRequestHandler):
@@ -958,14 +1236,32 @@ class _StubHandler(BaseHTTPRequestHandler):
         params = dict(urllib.parse.parse_qsl(query))
         if path == "/version":
             self.answer(200, {"major": "1", "minor": "31", "gitVersion": "v1.31.0"})
+        elif path == "/api/v1/nodes" and params.get("watch") == "true":
+            self.stub.node_watch(self, params)
         elif path == "/api/v1/nodes":
-            self.answer(200, self.stub.node_list)
+            self.answer(200, self.stub.node_page(params))
         elif path == "/api/v1/pods" and params.get("watch") == "true":
             self.stub.watch(self, params)
         elif path == "/api/v1/pods":
             self.answer(200, self.stub.page(params))
+        elif path.startswith(LEASE_PATH):
+            self.answer(*self.stub.lease("GET", path, None))
         else:
             self.answer(404, {"kind": "Status", "code": 404})
+
+    def _lease_write(self, method: str) -> None:
+        body = json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0) or 0)) or b"{}")
+        path = self.path.partition("?")[0]
+        if path.startswith(LEASE_PATH):
+            self.answer(*self.stub.lease(method, path, body))
+        else:
+            self.answer(404, {"kind": "Status", "code": 404})
+
+    def do_POST(self):  # noqa: N802
+        self._lease_write("POST")
+
+    def do_PUT(self):  # noqa: N802
+        self._lease_write("PUT")
 
     def do_PATCH(self):  # noqa: N802
         self.rfile.read(int(self.headers.get("Content-Length", 0) or 0))
@@ -1054,12 +1350,16 @@ class GcPauses:
         gc.callbacks.remove(self._hook)
 
 
-def watcher_config(config_dir: str, receiver_url: str, apiserver_url: str, workdir: str, *, probe_interval: float):
-    """The ``production`` environment as the port's ``load_app_config`` loads
-    it, with the two planes the port does not carry switched off (leader
-    election, the node watch), the serving plane on a free port, the GPU
-    backend, and the watcher pointed at local servers, a temporary checkpoint
-    and a temporary history WAL."""
+def watcher_config(config_dir: str, receiver_url: str, apiserver_url: str, workdir: str, *, probe_interval: float,
+                   environment: str = "production"):
+    """``environment`` as the port's ``load_app_config`` loads it, every plane
+    as shipped, with these overrides: the serving plane and the status routes
+    on free ports, the GPU backend and resource key, the node plane's
+    accelerator label and node selector pointed at the GPU operator's node
+    labels (``nvidia.com/gpu.product``, ``nvidia.com/gpu.present``; both
+    shipped selectors name GKE TPU labels), the probe interval, and the
+    watcher pointed at local servers, a temporary checkpoint and a temporary
+    history WAL."""
     from k8s_watcher_tpu_torch.config import load_app_config
 
     kubeconfig = os.path.join(workdir, "kubeconfig")
@@ -1070,21 +1370,19 @@ def watcher_config(config_dir: str, receiver_url: str, apiserver_url: str, workd
             "contexts": [{"name": "stub", "context": {"cluster": "stub", "user": "stub"}}],
             "users": [{"name": "stub", "user": {"token": "stub-token"}}],
         }, fh)
-    config = load_app_config("production", config_dir, env={
-        "CLUSTERAPI_BASE_URL": receiver_url, "PROD_CLUSTERAPI_API_KEY": API_KEY,
+    config = load_app_config(environment, config_dir, env={
+        "CLUSTERAPI_BASE_URL": receiver_url, "PROD_CLUSTERAPI_API_KEY": API_KEY, "STAGING_CLUSTERAPI_API_KEY": API_KEY,
         "WATCHER_STATUS_TOKEN": STATUS_TOKEN,
         "WATCHER_CHECKPOINT_PATH": os.path.join(workdir, "checkpoint.json"),
         "WATCHER_HISTORY_DIR": os.path.join(workdir, "history"),
     })
-    if not (config.history.enabled and config.health.enabled and config.slo.enabled):
-        fail("the production settings no longer enable the history, health and SLO planes")
+    if not (config.history.enabled and config.health.enabled and config.slo.enabled and config.tpu.node_watch_enabled):
+        fail(f"the {environment} settings no longer enable the history, health, SLO and node planes")
     return dataclasses.replace(
         config, serve=dataclasses.replace(config.serve, port=free_port()),
-        watcher=dataclasses.replace(
-            config.watcher, status_port=free_port(),
-            leader_election=dataclasses.replace(config.watcher.leader_election, enabled=False)),
-        tpu=dataclasses.replace(config.tpu, backend="gpu", resource_key=GPU_KEY, node_watch_enabled=False,
-                                probe_interval_seconds=probe_interval),
+        watcher=dataclasses.replace(config.watcher, status_port=free_port()),
+        tpu=dataclasses.replace(config.tpu, backend="gpu", resource_key=GPU_KEY, accelerator_label=GPU_PRODUCT_LABEL,
+                                node_watch_label_selector=GPU_PRESENT_LABEL, probe_interval_seconds=probe_interval),
         kubernetes=dataclasses.replace(config.kubernetes, use_incluster_config=False, config_file=kubeconfig),
     )
 
@@ -1098,6 +1396,96 @@ def wait_until(predicate, timeout_s: float, poll_s: float = 0.05) -> bool:
     return True
 
 
+def app_runner(app):
+    """``(app, its thread, errors)``: the thread runs ``app.run()`` once
+    started, and anything it raises lands in ``errors``."""
+    errors = []
+
+    def run():
+        try:
+            app.run()
+        except BaseException as exc:  # noqa: BLE001 — reported by the caller, fatal
+            errors.append(exc)
+
+    return app, threading.Thread(target=run, name="watcher", daemon=True), errors
+
+
+def count_cycles(agent, build) -> list:
+    """Each of the in-process probe agent's cycles, recorded on its thread
+    as its report goes to the sink: health, duration, readings and the
+    kernel launches since the last cycle."""
+    cycles = []
+    deliver = agent.sink
+
+    def count_cycle(notification):
+        counts = build.launch_counts()
+        since = {k: counts[k] - sum(c["launches"][k] for c in cycles) for k in counts}
+        payload = notification.payload
+        cycles.append({"end": time.monotonic(), "healthy": payload["healthy"], "duration_ms": payload["duration_ms"],
+                       "launches": since, "trend_alerts": payload["trend_alerts"],
+                       "mxu_tflops": (payload.get("mxu") or {}).get("tflops_median"),
+                       "hbm_read_gbps": (payload.get("hbm") or {}).get("read_gbps"),
+                       "hbm_write_gbps": (payload.get("hbm_write") or {}).get("write_gbps")})
+        deliver(notification)
+
+    agent.sink = count_cycle
+    return cycles
+
+
+class NodeChurn(threading.Thread):
+    """Phase 9's node churn. At each pause of the stub's pod churn: once the
+    app has folded every event before it (its parsed-event count) and its
+    notifications have drained, the position's node steps go to the node
+    watch; once the node plane has notified each of them and that has
+    drained, the pod churn is released. A failure is recorded and releases
+    every pause, so the churn goes on and the caller fails the phase."""
+
+    def __init__(self, app, stub: ClusterStub, cluster: GpuCluster):
+        super().__init__(name="node-churn", daemon=True)
+        self.app, self.stub, self.cluster = app, stub, cluster
+        self.failures = []
+        self.steps_s = []  # per pause: seconds from the node events to their last notification
+
+    def _settle(self) -> None:
+        time.sleep(0.3)  # the batch or node event being folded
+        if not self.app.dispatcher.drain(60):
+            raise RuntimeError("notifications did not drain at a node-churn pause")
+
+    def run(self) -> None:
+        app, stub, cluster = self.app, self.stub, self.cluster
+        m = app.metrics
+        parsed_before, n = [], 0  # events the watcher parses before each churn position
+        for _, spec, *_ in cluster.churn:
+            parsed_before.append(n)
+            n += 1 if spec.gpus else 0
+        notified = 0
+        try:
+            for position in sorted(stub.pauses):
+                steps = [(kind, node, ready) for p, kind, node, ready in cluster.node_steps if p == position]
+                if not wait_until(lambda: stub.paused_at == position, 180):
+                    raise RuntimeError(f"the pod churn did not reach its pause at {position}")
+                want = len(cluster.initial) + parsed_before[position]
+                if not wait_until(lambda: m.counter("events_received").value >= want
+                                  and app.ingest.queue.depth() == 0, 120):
+                    raise RuntimeError(f"{m.counter('events_received').value} of {want} events folded at the pause")
+                if not wait_until(lambda: app.node_watcher is not None and app.node_watcher.synced.is_set(), 60):
+                    raise RuntimeError("the node watch did not sync")
+                self._settle()
+                notified += len(steps)
+                t0 = time.monotonic()
+                stub.emit_nodes(steps)
+                if not wait_until(lambda: m.counter("node_notifications_enqueued").value >= notified, 60):
+                    raise RuntimeError(f"{m.counter('node_notifications_enqueued').value} of {notified} node "
+                                       f"payloads enqueued")
+                self._settle()
+                self.steps_s.append(time.monotonic() - t0)
+                stub.release(position)
+        except Exception as exc:  # noqa: BLE001 — reported by the caller, fatal
+            self.failures.append(repr(exc))
+            for event in stub.pauses.values():
+                event.set()
+
+
 def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: int, quiet: dict, **sizes) -> dict:
     """Phase 9: ``python -m k8s_watcher_tpu_torch production``'s ``WatcherApp``
     on the card against a seeded cluster of 2,048 GPU nodes and 50,000 pods
@@ -1105,7 +1493,21 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
     ``SUBSCRIBERS`` watch streams and analytics requests beside it, then a
     restart from its checkpoint (``sizes`` override ``GpuCluster``'s).
     ``quiet`` holds phase 4's readings. Every check is fatal. Returns the
-    kernel launches of the watcher's run."""
+    kernel launches of the watcher's run.
+
+    ``production`` runs as shipped, leader election and the node plane
+    included, with ``watcher_config``'s overrides. The Lease must be created
+    before the first pod LIST, renewed while the app runs, released (empty
+    ``holderIdentity``) by the stop, and taken again by the restarted app. The
+    node churn (``GpuCluster.node_steps``) reaches the node watch while the
+    pod churn stands still at its two positions, each released once the app
+    has folded every event before it and the node plane has handled the node
+    events: the POSTed ``NODE_CONDITION_CHANGE``/``NODE_DELETED`` payloads
+    must equal ``fold_node_payloads`` (their ``event_timestamp`` aside), and
+    every slice transition the node events cause in ``fold_production`` (the
+    slices of a NotReady or deleted node going Degraded, those of a node back
+    Ready going Ready) must be among the POSTed ``SLICE_PHASE_CHANGE``
+    payloads."""
     import torch
 
     from k8s_watcher_tpu_torch.analytics import parse_scenarios, python_reference_verdicts
@@ -1118,9 +1520,14 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
 
     t_phase = time.monotonic()
     cluster = GpuCluster(seed, **sizes)
-    stub = ClusterStub(cluster)
+    pauses = sorted({position for position, *_ in cluster.node_steps})
+    stub = ClusterStub(cluster, pauses=pauses)
     t_built = time.monotonic()
-    last, transitions = fold_production(GpuCluster.facts(cluster.initial) + GpuCluster.facts(cluster.churn))
+    node_caused = []
+    last, transitions = fold_production(
+        GpuCluster.facts(cluster.initial) + GpuCluster.facts(cluster.churn),
+        node_steps=[(len(cluster.initial) + p, *rest) for p, *rest in cluster.node_steps], node_caused=node_caused)
+    want_nodes = fold_node_payloads(cluster.node_steps, "production")
     # the stub stands in for the apiserver, another process in a real
     # cluster: its ~1.2 million objects would otherwise sit in every full
     # cyclic collection the watcher's LIST triggers (~1 s each on the card's
@@ -1141,43 +1548,19 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
     }))
 
     def run_app(config):
-        app = WatcherApp(config, device=dev)
-        errors = []
-
-        def run():
-            try:
-                app.run()
-            except BaseException as exc:  # noqa: BLE001 — reported by the caller, fatal
-                errors.append(exc)
-
-        runner = threading.Thread(target=run, name="watcher", daemon=True)
-        return app, runner, errors
+        return app_runner(WatcherApp(config, device=dev))
 
     # the first watcher: LIST, churn, probe cycles, status routes, stop
     app, runner, errors = run_app(configs[0])
-    cycles = []
-    agent = app._probe_agent
-    deliver = agent.sink
-
-    def count_cycle(notification):
-        # on the agent thread, once per cycle: the launches since the last one
-        counts = build.launch_counts()
-        since = {k: counts[k] - sum(c["launches"][k] for c in cycles) for k in counts}
-        payload = notification.payload
-        cycles.append({"end": time.monotonic(), "healthy": payload["healthy"], "duration_ms": payload["duration_ms"],
-                       "launches": since, "trend_alerts": payload["trend_alerts"],
-                       "mxu_tflops": (payload.get("mxu") or {}).get("tflops_median"),
-                       "hbm_read_gbps": (payload.get("hbm") or {}).get("read_gbps"),
-                       "hbm_write_gbps": (payload.get("hbm_write") or {}).get("write_gbps")})
-        deliver(notification)
-
-    agent.sink = count_cycle
+    cycles = count_cycles(app._probe_agent, build)
     source = app.ingest.sources[0]
     tracked_objects = {"scanned": len(gc.get_objects()), "frozen": gc.get_freeze_count()}
     pauses = GcPauses()
     build.reset_launch_counts()
     t_start = time.monotonic()
     runner.start()
+    node_churn = NodeChurn(app, stub, cluster)
+    node_churn.start()
     serve_port = app.config.serve.port
     if not wait_until(
             lambda: errors or app.serve.server is not None and http_get(serve_port, "/serve/healthz")[0] == 200, 30):
@@ -1213,6 +1596,9 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
     if not drained:
         fail(f"the churn did not drain within {CHURN_DRAIN_LIMIT_S} s: rv {source.resource_version} of "
              f"{cluster.last_rv}, {m.counter('events_received').value} events through the pipeline")
+    node_churn.join(10)
+    if node_churn.failures or node_churn.is_alive():
+        fail(f"the node churn: {node_churn.failures or 'still running'}")
     # watch frames handled: parsed ones reach the pipeline, the prefiltered
     # (no GPU key) are counted by the source
     churn_events = m.counter("events_received").value - len(cluster.initial) + m.counter("events_prefiltered").value
@@ -1283,10 +1669,18 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
     t0 = time.perf_counter()
     app.metrics.sample()
     sample_ms = 1e3 * (time.perf_counter() - t0)
+    le = app.config.watcher.leader_election
+    lease_key = (le.lease_namespace, le.lease_name)
+    identity = app.elector.identity if app.elector is not None else None
+    node_watch = {"synced": app.node_watcher is not None and app.node_watcher.synced.is_set(),
+                  "relists": m.counter("node_relists").value}
     t_stop = time.monotonic()
     app.stop()
     runner.join(60)
     stop_s = time.monotonic() - t_stop
+    with stub.lock:
+        lease_after_stop = dict(stub.leases.get(lease_key, {}).get("spec") or {})
+        lease_log = list(stub.lease_log)
     launches = build.launch_counts()
     pauses.close()
     final_rv = app.serve.view.rv
@@ -1320,7 +1714,14 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
                       "requests": m.counter("analytics_requests").value,
                       "kernel": m.histogram("analytics_kernel_seconds").summary(),
                       "encode": m.histogram("analytics_encode_seconds").summary()},
-        "pipeline_events_per_s": churn_events / churn_s if churn_s > 0 else None,
+        # the churn stood still at the node churn's pauses
+        "churn_paused_s": stub.paused_s,
+        "pipeline_events_per_s": churn_events / (churn_s - stub.paused_s) if churn_s > stub.paused_s else None,
+        "leader_election": {"identity": identity, "lease_writes": len(lease_log),
+                            "renews": sum(1 for _, method, _ in lease_log if method == "PUT"),
+                            "after_stop": lease_after_stop},
+        "node_watch": {**node_watch, "steps": len(cluster.node_steps), "pause_to_notified_s": node_churn.steps_s,
+                       "node_payloads": m.counter("node_notifications_enqueued").value},
         "event_to_notify_latency": latency,
         "item_posts": receivers[0].item_posts, "batch_posts": receivers[0].batch_posts,
         "payloads": len(received),
@@ -1339,12 +1740,26 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
         "stop_s": stop_s, "launches": launches, "device": name, "power_limit": power_limit,
     }))
 
+    # 0. leader election: created before the first pod LIST, renewed, released
+    # by the stop
+    writes = [(t, method, spec) for t, method, spec in lease_log if spec.get("holderIdentity") == identity]
+    renew_times = {spec.get("renewTime") for t, method, spec in writes if method == "PUT" and t < t_stop}
+    if not lease_log or lease_log[0][1] != "POST" or stub.first_pod_list_t is None or \
+            lease_log[0][0] >= stub.first_pod_list_t:
+        fail(f"the Lease was not created before the first pod LIST: {lease_log[:2]}, LIST at {stub.first_pod_list_t}")
+    if identity is None or len(renew_times) < 2:
+        fail(f"the Lease was not renewed while the app ran: identity {identity}, {len(renew_times)} renewTimes")
+    if lease_after_stop.get("holderIdentity") != "":
+        fail(f"the stop did not release the Lease: {lease_after_stop}")
     # 1. notifications against the plain fold
-    pod_last, slice_seen, probes = {}, {}, 0
+    pod_last, slice_seen, node_seen, probes = {}, {}, {}, 0
     for payload in received:
         kind = payload.get("event_type")
         if kind == "TPU_PROBE":
             probes += 1
+        elif kind in ("NODE_CONDITION_CHANGE", "NODE_DELETED"):
+            node_seen.setdefault(payload["node"], []).append(
+                {k: v for k, v in payload.items() if k != "event_timestamp"})
         elif kind == "SLICE_PHASE_CHANGE":
             slice_seen.setdefault(payload["slice"], []).append(
                 (payload["phase_transition"]["from"], payload["phase_transition"]["to"]))
@@ -1359,9 +1774,20 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
         wrong = sorted(set(pod_last.items()) ^ set(last.items()))[:6]
         fail(f"last pod payloads differ from the fold ({len(pod_last)} vs {len(last)}): {wrong}")
     degraded_seen = sorted(k for k, t in slice_seen.items() if any(to == "Degraded" for _, to in t))
-    if degraded_seen != cluster.failed_jobsets or sorted(slice_seen) != sorted(transitions):
-        fail(f"slice notifications: Degraded {degraded_seen} for the failed {cluster.failed_jobsets}; "
-             f"{len(slice_seen)} slices named of {len(transitions)}")
+    degraded_fold = sorted(k for k, t in transitions.items() if any(to == "Degraded" for _, to in t))
+    if degraded_seen != degraded_fold or sorted(slice_seen) != sorted(transitions) or \
+            not set(cluster.failed_jobsets) <= set(degraded_seen):
+        fail(f"slice notifications: Degraded {degraded_seen}, the fold's {degraded_fold} (failed "
+             f"{cluster.failed_jobsets}); {len(slice_seen)} slices named of {len(transitions)}")
+    # the node plane: its payloads against their fold, and every slice
+    # transition the node events cause among the POSTs
+    if node_seen != want_nodes:
+        wrong = sorted(set(node_seen) ^ set(want_nodes)) or sorted(k for k in node_seen if node_seen[k] != want_nodes[k])
+        fail(f"node payloads differ from fold_node_payloads for {len(wrong)} nodes: {wrong[:4]}")
+    missing = [(key, a, b) for key, a, b in node_caused if (a, b) not in slice_seen.get(key, ())]
+    if len(node_caused) < len(cluster.flipped_nodes) or missing:
+        fail(f"{len(missing)} of the {len(node_caused)} slice transitions the node churn causes are not among the "
+             f"POSTs: {missing[:4]}")
     final_seen = {k: t[-1][1] for k, t in slice_seen.items()}
     if final_seen != {k: t[-1][1] for k, t in transitions.items()}:
         fail("the last slice notification per JobSet differs from the fold's last phase")
@@ -1572,6 +1998,9 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
 
     restarted = wait_until(lambda: errors2 or tombstones() >= gone, 120)
     restart_s = time.monotonic() - t_restart
+    with stub.lock:
+        lease_restart = dict(stub.leases.get(lease_key, {}).get("spec") or {})
+    identity2 = app2.elector.identity if app2.elector is not None else None
     recovered = app2.history.recovered
     restored = {"instance_kept": app2.serve.view.instance == token[1], "clean": recovered.clean,
                 "recovered_rv": recovered.rv, "journal": len(recovered.journal), "construct_s": construct_s}
@@ -1591,6 +2020,9 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
     gc.unfreeze()
     if errors2 or runner2.is_alive():
         fail(f"the restarted watcher: errors {errors2}, still running {runner2.is_alive()}")
+    if identity2 is None or lease_restart.get("holderIdentity") != identity2 or \
+            lease_restart.get("leaseTransitions") != lease_after_stop.get("leaseTransitions", 0) + 1:
+        fail(f"the restarted app did not take the Lease again: {lease_restart} (identity {identity2})")
     if not restarted or tombstones() != gone:
         fail(f"the restart POSTed DELETED for {len(tombstones() & gone)} of the {len(gone)} pods deleted while "
              f"down (and {len(tombstones() - gone)} others)")
@@ -1615,10 +2047,228 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
     restored.update({"resumed_from_rv": token[0], "resumed_to_rv": body["to_rv"], "resumed_deltas": len(body["items"]),
                      "resumed_compacted": body["compacted"]})
     print("watcher restart: " + json.dumps({
+        "lease_after_restart": lease_restart,
         "deleted_while_down": len(gone), "synthesized_deleted": len(tombstones()), "restart_to_last_deleted_s":
         restart_s, "restored": restored, "phase_s": time.monotonic() - t_phase, "device": name,
         "power_limit": power_limit,
     }))
+    return launches
+
+
+def staging_phase(dev, name: str, power_limit: str, seed: int, **sizes) -> dict:
+    """Phase 11: ``python -m k8s_watcher_tpu_torch staging``'s ``WatcherApp``
+    as shipped (``watcher_config``'s overrides) on the card: two shard streams
+    read by two spawned reader processes on the native prefilter, the node
+    plane, the serving, analytics, history, health and SLO planes and the
+    in-process probe, against ``GpuCluster(seed)`` with its JobSets and
+    services in staging's watched namespaces (``sizes`` override its sizes).
+    ``ClusterStub`` serves each shard stream the whole LIST and churn, as a
+    stock apiserver does. Halfway through the churn reader 0 is SIGKILLed; it
+    respawns and resumes from its shard checkpoints. Delivery is then
+    at-least-once: a replayed event may POST an older state again, so the
+    rule is that each pod's last POSTed payload equals ``fold_production``'s
+    under the staging rules (every significant change notifies), each
+    JobSet's last POSTed slice phase equals the fold's, every failed JobSet
+    went Degraded in the pipeline's notifications (under backlog the egress
+    lanes coalesce by key, so a later payload may replace that one on the
+    wire), and nothing else is named. Also: both readers run the native
+    scanner; the prefilter skipped frames and every other-shard GPU frame was
+    skipped before a parse; ``/debug/processes`` lists both readers, one with
+    one respawn; at least ``WATCHER_PROBE_CYCLES`` probe cycles ran healthy
+    with every kernel launched in each; the node watch synced; the stop takes
+    under ``STOP_LIMIT_S`` and leaves no reader process; each shard's
+    checkpoint holds the last resourceVersion. Every check is fatal. Returns
+    the kernel launches of the run."""
+    import multiprocessing
+    import signal
+
+    from k8s_watcher_tpu_torch.app import WatcherApp
+    from k8s_watcher_tpu_torch.config import load_app_config
+    from k8s_watcher_tpu_torch.kernels import build
+    from k8s_watcher_tpu_torch.native.build import build_fastscan, last_build_error
+    from k8s_watcher_tpu_torch.state.checkpoint import CheckpointStore
+    from k8s_watcher_tpu_torch.watch.procpool import worker_checkpoint_dir
+
+    t_phase = time.monotonic()
+    lib = build_fastscan()
+    if lib is None:
+        fail(f"the native scanner did not build: {last_build_error()}")
+    namespaces = load_app_config("staging", os.path.join(REPO, "config"), env={}).watcher.namespaces
+    cluster = GpuCluster(seed, namespaces=namespaces, jobset_namespace="staging", **sizes)
+    stub = ClusterStub(cluster)
+    last, transitions = fold_production(GpuCluster.facts(cluster.initial) + GpuCluster.facts(cluster.churn),
+                                        namespaces=namespaces, critical=False)
+    gc.collect()
+    gc.freeze()
+    apiserver = serve_handler(type("StubApi", (_StubHandler,), {"stub": stub}))
+    receiver = serve_handler(_ReceiverHandler, lock=threading.Lock(), payloads=[], item_posts=0, batch_posts=0)
+    workdir = tempfile.TemporaryDirectory()
+    config = watcher_config(os.path.join(REPO, "config"), f"http://127.0.0.1:{receiver.server_address[1]}",
+                            f"http://127.0.0.1:{apiserver.server_address[1]}", workdir.name, probe_interval=1.0,
+                            environment="staging")
+    ingest = config.ingest
+    if (ingest.processes, ingest.shards, ingest.prefilter) != (2, 2, "auto"):
+        fail(f"the staging settings no longer run 2 readers over 2 shards on prefilter auto: {ingest}")
+    print("staging cluster: " + json.dumps({
+        "seed": seed, "nodes": cluster.nodes, "pods": len(cluster.initial), "churn_events": len(cluster.churn),
+        "namespaces": list(namespaces), "jobsets": len(transitions), "failed_jobsets": len(cluster.failed_jobsets),
+        "list_bytes": stub.pod_bytes, "fastscan": os.path.relpath(str(lib), REPO),
+    }))
+    app, runner, errors = app_runner(WatcherApp(config, device=dev))
+    cycles = count_cycles(app._probe_agent, build)
+    m = app.metrics
+    endpoints = app.ingest.endpoints
+    # the slice transitions the pipeline hands to egress, before any coalescing
+    emitted, to_egress = [], app.pipeline.sink
+
+    def record(notification):
+        if notification.kind == "slice":
+            p = notification.payload
+            emitted.append((p["slice"], p["phase_transition"]["from"], p["phase_transition"]["to"]))
+        to_egress(notification)
+
+    app.pipeline.sink = record
+
+    def posted():
+        with receiver.lock:
+            return [p for _, p in receiver.payloads]
+
+    def folds(payloads):
+        pods, slices = {}, {}
+        for p in payloads:
+            kind = p.get("event_type")
+            if kind == "SLICE_PHASE_CHANGE":
+                slices.setdefault(p["slice"], []).append((p["phase_transition"]["from"], p["phase_transition"]["to"]))
+            elif kind in ("ADDED", "MODIFIED", "DELETED"):
+                pods[p["uid"]] = (kind, (p.get("status") or {}).get("phase"), p.get("namespace"), p.get("name"))
+        return pods, slices
+
+    final = {k: t[-1][1] for k, t in transitions.items()}
+
+    def converged():
+        pods, slices = folds(posted())
+        return pods == last and {k: t[-1][1] for k, t in slices.items()} == final
+
+    build.reset_launch_counts()
+    t_start = time.monotonic()
+    runner.start()
+    if not wait_until(lambda: errors or all(e.last_hello for e in endpoints), 60):
+        fail(f"the reader processes did not say hello within 60 s: {[e.last_hello for e in endpoints]}")
+    hellos = [dict(e.last_hello) for e in endpoints]
+    gpu_churn = sum(1 for _, spec, *_ in cluster.churn if spec.gpus)
+    if not wait_until(lambda: errors or m.counter("events_received").value >= len(cluster.initial) + gpu_churn // 2,
+                      CHURN_DRAIN_LIMIT_S):
+        fail(f"half the churn did not arrive within {CHURN_DRAIN_LIMIT_S} s: "
+             f"{m.counter('events_received').value} events")
+    list_s = stub.churn_t0 - t_start if stub.churn_t0 else None
+    victim = endpoints[0].pid
+    t_kill = time.monotonic()
+    killed_at = {"events_received": m.counter("events_received").value, "stub_published": stub.published,
+                 "s_after_churn_start": t_kill - stub.churn_t0}
+    os.kill(victim, signal.SIGKILL)
+    if not wait_until(lambda: errors or (endpoints[0].respawns >= 1 and endpoints[0].pid not in (None, victim)
+                                         and endpoints[0].last_hello.get("pid") != victim), 60):
+        fail(f"reader 0 did not respawn within 60 s of its SIGKILL (respawns {endpoints[0].respawns})")
+    respawn_s = time.monotonic() - t_kill
+    respawn_hello = dict(endpoints[0].last_hello)
+    drained = wait_until(lambda: errors or (stub.churn_done.is_set() and app.ingest.queue.depth() == 0
+                                            and converged()), CHURN_DRAIN_LIMIT_S)
+    drained = drained and app.dispatcher.drain(60)
+    t_drained = time.monotonic()
+    if errors:
+        fail(f"the staging watcher raised: {errors[0]!r}")
+    if not drained:
+        pods, _ = folds(posted())
+        fail(f"the staging churn did not converge within {CHURN_DRAIN_LIMIT_S} s: {len(pods)} pods POSTed of "
+             f"{len(last)}, churn written {stub.churn_done.is_set()}")
+    if not wait_until(lambda: sum(1 for c in cycles if c["end"] > stub.churn_t0) >= WATCHER_PROBE_CYCLES, 60):
+        fail(f"{sum(1 for c in cycles if c['end'] > stub.churn_t0)} probe cycles ran during and after the churn")
+    port = config.watcher.status_port
+    routes = {r: http_get(port, r, STATUS_TOKEN) for r in ("/healthz", "/debug/processes")}
+    node_watch = {"synced": app.node_watcher is not None and app.node_watcher.synced.is_set(),
+                  "relists": m.counter("node_relists").value}
+    counters = {k: m.counter(k).value for k in ("events_received", "events_prefiltered", "events_other_shard",
+                                                "ingest_worker_respawns", "ingest_wire_gaps", "dispatch_sent",
+                                                "dispatch_coalesced", "dispatch_failed", "dispatch_dropped_overflow",
+                                                "relists")}
+    pids = [p for p in app.ingest.worker_pids() if p]
+    t_stop = time.monotonic()
+    app.stop()
+    runner.join(60)
+    stop_s = time.monotonic() - t_stop
+    launches = build.launch_counts()
+    alive_after = [p for p in pids if os.path.exists(f"/proc/{p}")] + [c.pid for c in multiprocessing.active_children()]
+    stub.closing.set()
+    for server in (apiserver, receiver):
+        server.shutdown()
+        server.server_close()
+    shard_dir = worker_checkpoint_dir(config.state.checkpoint_path)
+    shard_rvs = [CheckpointStore(os.path.join(shard_dir, f"shard-{i}-of-2.json")).resource_version() for i in range(2)]
+    workdir.cleanup()
+    gc.unfreeze()
+
+    payloads = posted()
+    pods, slices = folds(payloads)
+    churn_frames = stub.frames_written  # each shard stream is sent the whole churn; a resumed one the rest
+    foreign_written = sum(stub.foreign_written.values())
+    churn_s = t_drained - stub.churn_t0
+    print("staging run: " + json.dumps({
+        "list_s": list_s, "list_pages": stub.list_pages, "pod_lists": stub.pod_lists, "pod_watches": len(stub.watches),
+        "churn_s": churn_s, "churn_frames": churn_frames,
+        "churn_frames_per_s": churn_frames / churn_s if churn_s > 0 else None,
+        "prefiltered_share": counters["events_prefiltered"] / churn_frames,
+        "foreign_gpu_frames_written": foreign_written, "counters": counters,
+        "killed_at": killed_at, "respawn_s": respawn_s, "hellos": hellos, "respawn_hello": respawn_hello,
+        "processes": routes["/debug/processes"][1], "node_watch": node_watch,
+        "payloads": len(payloads), "item_posts": receiver.item_posts, "batch_posts": receiver.batch_posts,
+        "event_to_notify_latency": m.histogram("event_to_notify_latency").summary(),
+        "probe_cycles": [{**{k: v for k, v in c.items() if k != "end"},
+                          "ended_s_after_churn_start": c["end"] - stub.churn_t0} for c in cycles],
+        "stop_s": stop_s, "shard_checkpoint_rvs": shard_rvs, "launches": launches,
+        "phase_s": time.monotonic() - t_phase, "device": name, "power_limit": power_limit,
+    }))
+
+    if runner.is_alive() or stop_s > STOP_LIMIT_S or alive_after:
+        fail(f"the staging watcher did not stop cleanly: {stop_s:.2f} s, reader processes left {alive_after}")
+    if errors:
+        fail(f"the staging watcher raised: {errors[0]!r}")
+    # the readers: two processes, two shards, the native scanner in each
+    if len({h["pid"] for h in hellos}) != 2 or sorted(h["shards"][0] for h in hellos) != [0, 1] or any(
+            h.get("scanners") != ["NativeFrameScanner"] for h in hellos + [respawn_hello]):
+        fail(f"reader hellos: {hellos}, after the respawn {respawn_hello}")
+    if counters["events_prefiltered"] <= 0 or foreign_written <= 0 or counters["events_other_shard"]:
+        fail(f"the prefilter: {counters['events_prefiltered']} frames skipped, {foreign_written} other-shard GPU "
+             f"frames written, {counters['events_other_shard']} of them parsed")
+    status, body = routes["/debug/processes"]
+    rows = (body.get("processes") or {}).get("workers", []) if status == 200 else []
+    if len(rows) != 2 or sorted(r["respawns"] for r in rows) != [0, 1] or any(r["wire_gaps"] for r in rows):
+        fail(f"/debug/processes: {status} {rows}")
+    health = routes["/healthz"][1]
+    if routes["/healthz"][0] != 200 or health.get("alive") is not True or "processes" not in health:
+        fail(f"/healthz: {routes['/healthz']}")
+    # what was POSTed against the fold under the staging rules
+    gpu_uids = {spec.uid for _, spec, *_ in cluster.initial + cluster.churn if spec.gpus}
+    strays = [v for uid, v in pods.items() if uid not in gpu_uids or v[2] not in namespaces]
+    if strays:
+        fail(f"payloads name pods the watcher must drop: {strays[:5]}")
+    if pods != last:
+        wrong = sorted(set(pods.items()) ^ set(last.items()))[:6]
+        fail(f"last pod payloads differ from the staging fold ({len(pods)} vs {len(last)}): {wrong}")
+    degraded = {k for k, _, to in emitted if to == "Degraded"}
+    if {k: t[-1][1] for k, t in slices.items()} != final or not set(cluster.failed_jobsets) <= degraded:
+        fail(f"slice payloads: last phases differ from the fold, or a failed JobSet never went Degraded "
+             f"({sorted(set(cluster.failed_jobsets) - degraded)})")
+    if counters["dispatch_failed"] or counters["dispatch_dropped_overflow"]:
+        fail(f"dispatch: {counters}")
+    # the probe and the node plane beside the readers
+    for n, cycle in enumerate(cycles):
+        want = {"read_sweep": 5, "fill": 5, "blocksums": 1}
+        if not cycle["healthy"] or cycle["launches"] != want:
+            fail(f"staging probe cycle {n}: healthy={cycle['healthy']}, launches {cycle['launches']} (want {want})")
+    if not node_watch["synced"] or node_watch["relists"] < 1:
+        fail(f"the node watch: {node_watch}")
+    if shard_rvs != [str(stub.rv)] * 2:
+        fail(f"shard checkpoints at {shard_rvs}, the stub at {stub.rv}")
     return launches
 
 
@@ -2057,6 +2707,13 @@ def main() -> int:
 
     analytics_phase(torch, dev, name, power_limit, seed,
                     load_app_config("production", os.path.join(REPO, "config"), env={}).analytics)
+
+    # 11. staging as shipped: two spawned reader processes on the native
+    # prefilter, one killed and respawned, beside the probe
+    staging_launches = staging_phase(dev, name, power_limit, seed)
+    for kernel in kernels:
+        if staging_launches[kernel["name"]] <= 0:
+            fail(f"kernel {kernel['name']} was not launched by the staging watcher's run")
 
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()

@@ -15,6 +15,12 @@ survive a restart, and ``?at=`` reads the past); ``health.enabled`` scores
 nodes against their slice peers from the view's phases, the trace stages and
 the in-process probe's reports, escalating through the remediation actuator;
 ``slo.enabled`` evaluates burn rates over the registry.
+``watcher.leader_election.enabled`` makes a replica stand by (status routes
+up, liveness beating, no watch held, nothing sent) until it holds the
+Lease; ``tpu.node_watch.enabled`` adds the node plane's list+watch, whose
+readiness changes degrade the slices of their members; ``ingest.processes``
+moves the shard streams, their native prefilter and their checkpoints into
+supervised reader processes (``/debug/processes``).
 
 Planes the port does not carry yet are refused, never skipped: a config that
 enables one makes the constructor raise ``ConfigError`` naming the key.
@@ -47,9 +53,6 @@ logger = logging.getLogger(__name__)
 UNPORTED_PLANES: Tuple[Tuple[str, Callable[[AppConfig], bool]], ...] = (
     ("federation.enabled", lambda c: c.federation.enabled),
     ("relay.enabled", lambda c: c.relay.enabled),
-    ("watcher.leader_election.enabled", lambda c: c.watcher.leader_election.enabled),
-    ("tpu.node_watch.enabled", lambda c: c.tpu.node_watch_enabled),
-    ("ingest.processes", lambda c: c.ingest.processes > 0),
 )
 
 
@@ -94,6 +97,21 @@ def build_source(
             tracer=tracer,
         )
 
+    if ingest.processes > 0:
+        # the multi-process ingest tier: the shard streams, their prefilters
+        # and their per-shard checkpoints run in supervised reader
+        # processes; this process keeps the pipeline, the view and one
+        # control-plane client
+        from k8s_watcher_tpu_torch.watch.procpool import build_process_source
+
+        logger.info(
+            "Multi-process ingest: %d reader processes x %d shard streams (prefilter=%s; per-shard checkpoints "
+            "under %s)",
+            ingest.processes, ingest.shards, ingest.resolved_prefilter(config.tpu.prefilter),
+            config.state.checkpoint_path,
+        )
+        return build_process_source(config, metrics=metrics, tracer=tracer, heartbeat=heartbeat)
+
     from k8s_watcher_tpu_torch.k8s.client import K8sClient
     from k8s_watcher_tpu_torch.k8s.kubeconfig import load_connection
     from k8s_watcher_tpu_torch.k8s.watch import KubernetesWatchSource
@@ -127,8 +145,10 @@ def build_source(
             watch_timeout_seconds=config.kubernetes.watch_timeout_seconds,
             checkpoint=shard_checkpoint,
             heartbeat=heartbeat,
-            # one scanner per shard stream; uid extraction (the pre-parse
-            # foreign-shard skip) only matters with more than one shard
+            # one scanner per shard stream (the native scanner's record
+            # buffers are per-instance scratch); uid extraction (the
+            # pre-parse foreign-shard skip) only matters with more than one
+            # shard
             scanner=make_scanner(config.tpu.resource_key, mode=prefilter_mode, extract_uid=shards > 1),
             metrics=metrics,
             list_page_size=config.watcher.list_page_size,
@@ -333,6 +353,8 @@ class WatcherApp:
             accelerator_label=config.tpu.accelerator_label,
         )
         self._stop = threading.Event()
+        self.elector = None  # k8s.leader.LeaderElector with watcher.leader_election
+        self.node_watcher = None  # nodes.NodeWatcher with tpu.node_watch
         self.remediation = None  # remediate.ProbeRemediationPolicy when armed
         self._probe_agent = None
         self._owns_process_group = False
@@ -378,6 +400,8 @@ class WatcherApp:
                 else None
             )
             stall_after = self.config.clusterapi.egress_stall_seconds
+            # the reader-process surface, only when the process tier is live
+            procs_live = callable(getattr(self.ingest, "process_report", None))
             self.status_server = StatusServer(
                 self.metrics,
                 self.liveness,
@@ -401,6 +425,8 @@ class WatcherApp:
                 slo_health=self.slo.health if self.slo is not None else None,
                 node_health=self.health.snapshot if self.health is not None else None,
                 node_health_fold=self.health.health if self.health is not None else None,
+                processes=self._processes_snapshot if procs_live else None,
+                processes_fold=self._processes_health if procs_live else None,
                 auth_token=self.config.watcher.status_auth_token,
             ).start()
             routes = "/metrics, /healthz, /debug/slices" + (
@@ -413,8 +439,15 @@ class WatcherApp:
                 ", /debug/history" if self.history is not None else ""
             ) + (", /debug/freshness" if self.serve is not None else "") + (
                 ", /debug/slo" if self.slo is not None else ""
-            ) + (", /debug/health" if self.health is not None else "")
+            ) + (", /debug/health" if self.health is not None else "") + (
+                ", /debug/processes" if procs_live else ""
+            )
             logger.info("Status endpoint on :%d (%s)", self.status_server.port, routes)
+        if self.config.watcher.leader_election.enabled:
+            self._campaign()  # blocks until this replica leads (or stop())
+            if self._stop.is_set():
+                self.shutdown()
+                return
         if self.notifier.health_check():
             logger.info("ClusterAPI health check passed")
         else:
@@ -425,6 +458,7 @@ class WatcherApp:
         self._start_health()
         if self._probe_agent is not None:
             self._probe_agent.start()
+        self._start_node_watch()
         try:
             # batched drain: whatever accumulated in the ingest queue since
             # the last iteration (<= ingest.batch_max) goes through the
@@ -440,6 +474,44 @@ class WatcherApp:
             logger.info("Stopping Pod watcher...")
         finally:
             self.shutdown()
+
+    def _campaign(self) -> None:
+        """Stand by until this replica holds the leadership Lease. A standby
+        is hot (dispatcher and status routes up, liveness beating) but holds
+        no watch and sends nothing. Losing a held leadership stops the app;
+        the restarted process rejoins as a standby (the client-go
+        convention)."""
+        client = getattr(self.source, "client", None)
+        if client is None:
+            logger.warning("Leader election enabled but the watch source has no k8s client (mock/fake source); "
+                           "skipping")
+            return
+        from k8s_watcher_tpu_torch.k8s.leader import LeaderElector, default_identity, elector_client
+
+        le = self.config.watcher.leader_election
+        identity = le.identity or default_identity()
+
+        def lost() -> None:
+            logger.error("Leadership lost; stopping watcher (restart to rejoin as standby)")
+            self.stop()
+
+        self.elector = LeaderElector(
+            # a dedicated short-timeout client: a stalled renew must not
+            # outlive the renew deadline
+            elector_client(client, le.renew_deadline_seconds, le.lease_duration_seconds),
+            lease_namespace=le.lease_namespace,
+            lease_name=le.lease_name,
+            identity=identity,
+            lease_duration_seconds=le.lease_duration_seconds,
+            renew_deadline_seconds=le.renew_deadline_seconds,
+            retry_period_seconds=le.retry_period_seconds,
+            on_stopped_leading=lost,
+        ).start()
+        logger.info("Standing by for leadership of %s/%s as %s", le.lease_namespace, le.lease_name, identity)
+        while not self._stop.is_set():
+            self.liveness.beat()  # a healthy standby is alive, just not leading
+            if self.elector.wait_for_leadership(timeout=1.0):
+                return
 
     def _start_remediation(self) -> None:
         """Arm remediation (``tpu.remediation.enabled``): the probe agent's
@@ -522,6 +594,46 @@ class WatcherApp:
             logger.info("Health plane actuator armed (dry_run=%s, shared_with_remediation=%s)",
                         actuator.dry_run, self.remediation is not None)
 
+    def _start_node_watch(self) -> None:
+        """Start the node plane (``tpu.node_watch.enabled``): a second
+        list+watch over /api/v1/nodes on its own thread and client. Only the
+        leader runs it (run() reaches here after the campaign), so a standby
+        never notifies node transitions twice."""
+        if not self.config.tpu.node_watch_enabled:
+            return
+        client = getattr(self.source, "client", None)
+        if client is None:
+            logger.warning("tpu.node_watch enabled but the watch source has no k8s client (mock/fake source); "
+                           "skipping")
+            return
+        from k8s_watcher_tpu_torch.k8s.client import K8sClient
+        from k8s_watcher_tpu_torch.nodes import NodeTracker, NodeWatcher
+
+        t = self.config.tpu
+        tracker = NodeTracker(
+            self.config.environment,
+            resource_key=t.resource_key,
+            accelerator_label=t.accelerator_label,
+            topology_label=t.topology_label,
+        )
+        self.node_watcher = NodeWatcher(
+            # a client carries at most one live watch: the node stream gets
+            # its own, on the same connection settings
+            K8sClient(client.connection, request_timeout=self.config.kubernetes.request_timeout),
+            tracker,
+            self._notify_sink,
+            slice_tracker=self.slice_tracker,
+            label_selector=t.node_watch_label_selector,
+            retry=self.config.watcher.retry,
+            watch_timeout_seconds=self.config.kubernetes.watch_timeout_seconds,
+            metrics=self.metrics,
+            list_page_size=self.config.watcher.list_page_size,
+        ).start()
+        # pod events folded after the node plane syncs get a live existence
+        # answer: a member landing on an already-deleted node starts down
+        self.slice_tracker.set_node_existence_provider(self.node_watcher.node_existence)
+        logger.info("Node watch started (selector=%s)", t.node_watch_label_selector or "<all nodes>")
+
     def _maybe_checkpoint(self, force: bool = False) -> None:
         if self.checkpoint is None:
             return
@@ -552,12 +664,49 @@ class WatcherApp:
             out["local"]["watch_to_local_view_seconds"] = local_hist.summary()
         return out
 
+    def _process_reports(self) -> list:
+        """Supervision rows of the reader processes (``ingest.processes``)."""
+        report = getattr(self.ingest, "process_report", None)
+        return report() if callable(report) else []
+
+    def _processes_snapshot(self) -> dict:
+        """The ``/debug/processes`` body: each reader's supervision row with
+        its hottest process-labelled counter series."""
+        rows = self._process_reports()
+        top = self.config.metrics.process_top_series
+        for row in rows:
+            label = row.get("process")
+            if label:
+                row["hottest_series"] = self.metrics.hottest_series(label, top)
+        return {"processes": len(rows), "export": self.config.metrics.process_export, "workers": rows}
+
+    def _processes_health(self) -> dict:
+        """The ``/healthz`` body fold: degraded (never liveness) while any
+        reader's stats are stale; a dead reader waiting out its respawn
+        backoff reads as stale too. The threshold is 10x the 0.5 s stats
+        cadence, floored at 5 s."""
+        rows = self._process_reports()
+        threshold = max(5.0, 10.0 * 0.5)
+        stale = [row.get("process") for row in rows
+                 if row.get("last_stats_age_seconds") is None or row["last_stats_age_seconds"] > threshold]
+        return {"healthy": not stale, "processes": len(rows), "stale": stale}
+
     def stop(self) -> None:
         self._stop.set()
         self.ingest.stop()  # stops the shard streams (incl. self.source)
 
     def shutdown(self) -> None:
         self.ingest.stop()
+        if callable(getattr(self.ingest, "process_report", None)):
+            # the reader processes drain (checkpoints flushed, EOS sent) and
+            # are reaped; a reader that ignores the grace is killed
+            self.ingest.join(5.0)
+        if self.node_watcher is not None:
+            self.node_watcher.stop()
+            self.node_watcher = None
+        if self.elector is not None:
+            self.elector.stop()  # release the Lease: a standby takes over now
+            self.elector = None
         if self.status_server is not None:
             self.status_server.stop()
             self.status_server = None

@@ -11,6 +11,9 @@ uses and the node surface remediation uses.
 - ``list_nodes_paged``           the same in ``limit``+``continue`` pages
 - ``get_node``                   GET /api/v1/nodes/{name}
 - ``patch_node``                 PATCH /api/v1/nodes/{name}, JSON merge-patch
+- ``watch_nodes``                GET /api/v1/nodes with ``watch=true``
+- ``get_lease``/``create_lease``/``replace_lease``
+                                 coordination.k8s.io/v1 Leases (leader election)
 
 Each request opens its own connection; a watch holds its connection for the
 server-side window (``timeoutSeconds``), and ``abort_watch`` shuts its socket
@@ -58,7 +61,8 @@ class K8sGoneError(K8sApiError):
 
 
 class K8sConflictError(K8sApiError):
-    """HTTP 409: a write carried a stale resourceVersion."""
+    """HTTP 409: a create raced another writer, or an update carried a stale
+    resourceVersion. Leader election treats it as "lost the race"."""
 
 
 class K8sNotFoundError(K8sApiError):
@@ -421,6 +425,36 @@ class K8sClient:
             "PATCH", f"/api/v1/nodes/{name}", json_body=patch, content_type="application/merge-patch+json",
         )
 
+    # -- coordination.k8s.io/v1 Leases (leader election) -------------------
+
+    @staticmethod
+    def _leases_path(namespace: str, name: Optional[str] = None) -> str:
+        base = f"/apis/coordination.k8s.io/v1/namespaces/{namespace}/leases"
+        return f"{base}/{name}" if name else base
+
+    def get_lease(self, namespace: str, name: str) -> Optional[Dict[str, Any]]:
+        """The Lease object, or None if it does not exist."""
+        try:
+            return self._request("GET", self._leases_path(namespace, name))
+        except K8sNotFoundError:
+            return None
+
+    def create_lease(self, namespace: str, name: str, spec: Dict[str, Any]) -> Dict[str, Any]:
+        """POST a new Lease; raises K8sConflictError if it already exists
+        (another candidate won the creation race)."""
+        body = {
+            "apiVersion": "coordination.k8s.io/v1",
+            "kind": "Lease",
+            "metadata": {"name": name, "namespace": namespace},
+            "spec": spec,
+        }
+        return self._request("POST", self._leases_path(namespace), json_body=body)
+
+    def replace_lease(self, namespace: str, name: str, lease: Dict[str, Any]) -> Dict[str, Any]:
+        """PUT a full Lease object; the server enforces optimistic concurrency
+        on ``metadata.resourceVersion`` (a stale write -> K8sConflictError)."""
+        return self._request("PUT", self._leases_path(namespace, name), json_body=lease)
+
     # -- watch -------------------------------------------------------------
 
     def watch_pods(
@@ -454,6 +488,27 @@ class K8sClient:
             params["shard"] = shard_selector
         return self._watch(self._target(self._pods_path(namespace), params), timeout_seconds, scanner,
                            parse_shard_selector(shard_selector) if shard_selector else None)
+
+    def watch_nodes(
+        self,
+        *,
+        resource_version: Optional[str] = None,
+        timeout_seconds: int = 300,
+        allow_bookmarks: bool = True,
+        label_selector: Optional[str] = None,
+    ) -> Iterator[Dict[str, Any]]:
+        """Stream raw node watch events (the ``watch_pods`` contract, with no
+        prefilter: node streams are tiny next to pod streams). One client
+        carries at most one live watch: run the node watch on its own
+        ``K8sClient``."""
+        params: Dict[str, Any] = {"watch": "true", "timeoutSeconds": timeout_seconds}
+        if resource_version:
+            params["resourceVersion"] = resource_version
+        if allow_bookmarks:
+            params["allowWatchBookmarks"] = "true"
+        if label_selector:
+            params["labelSelector"] = label_selector
+        return self._watch(self._target("/api/v1/nodes", params), timeout_seconds, None, None)
 
     def _watch(self, target: str, timeout_seconds: int, scanner, shard) -> Iterator[Dict[str, Any]]:
         self._refresh_auth()

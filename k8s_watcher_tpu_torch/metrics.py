@@ -8,7 +8,9 @@ text exposition ``prometheus_text()`` and the raw ``sample()`` the SLO plane
 keeps in its ring. Every metric is a label family: ``labels(node="a")``
 returns the child series of that label set (the serving plane's per-codec
 counters, the health plane's per-node gauges, the SLO plane's per-objective
-burn rates), rendered as the JAX package renders them.
+burn rates), rendered as the JAX package renders them. ``fold_sample`` folds
+a reader process's exported ``sample()`` under a ``process`` label, and
+``hottest_series`` ranks what was folded for one process.
 """
 
 from __future__ import annotations
@@ -291,6 +293,59 @@ class Histogram(_LabelFamily):
             out.append((bound, cum))
         return out, total, s
 
+    def ingest_bucket_deltas(self, items, n_delta: int, sum_delta: float) -> None:
+        """Add per-bucket increments differenced from another histogram's
+        cumulative sample (``_diff_cum_pairs``): ``(upper_bound_seconds,
+        count)`` items, each landing in the bucket whose upper edge matches
+        (both sides use the same bucket bounds)."""
+        if not items and n_delta <= 0:
+            return
+        placed = []
+        max_hint = 0.0
+        for bound, count in items:
+            if count <= 0:
+                continue
+            b = float(bound)
+            idx = len(self._counts) - 1 if math.isinf(b) else bisect.bisect_left(self._bounds, b)
+            placed.append((min(idx, len(self._counts) - 1), count))
+            if not math.isinf(b) and b > max_hint:
+                max_hint = b
+        with self._lock:
+            for idx, count in placed:
+                self._counts[idx] += count
+            self._n += max(0, n_delta)
+            self._sum += sum_delta
+            if max_hint > self._max:
+                self._max = max_hint
+
+
+def _diff_cum_pairs(pairs, total, sum_value, state):
+    """Difference one cumulative bucket sample against the previous one
+    (``state``, caller-owned, reset per worker spawn) into per-bucket
+    increments: ``(items, n_delta, sum_delta)``, updating ``state``. A total
+    below the previous one (a fresh incarnation reporting from zero) resets
+    the baseline, so nothing is counted twice or folded backwards."""
+    prev_cum = state.get("cum") or {}
+    prev_total = int(state.get("total") or 0)
+    prev_sum = float(state.get("sum") or 0.0)
+    if total < prev_total:
+        prev_cum, prev_total, prev_sum = {}, 0, 0.0
+    items = []
+    cum_now = {}
+    last_new = 0
+    for bound, cum in pairs:
+        b = float(bound)
+        cum_now[b] = cum
+        new_below = cum - prev_cum.get(b, 0)
+        inc = new_below - last_new
+        last_new = new_below
+        if inc > 0:
+            items.append((b, inc))
+    state["cum"] = cum_now
+    state["total"] = int(total)
+    state["sum"] = float(sum_value)
+    return items, int(total) - prev_total, float(sum_value) - prev_sum
+
 
 class MetricsRegistry:
     """Named counters, gauges and histograms of one process. Scrapes render
@@ -454,3 +509,79 @@ class MetricsRegistry:
             if c_series or g_series:
                 out["series"] = {"counters": c_series, "gauges": g_series}
         return out
+
+    def fold_sample(self, sample: Dict, *, process: str, watermarks: Dict, rollup_exclude=frozenset()) -> None:
+        """Fold one worker registry ``sample(include_series=True)`` into this
+        registry under a ``process`` label. ``watermarks`` is caller-owned
+        per-spawn state (a fresh dict after each respawn), against which the
+        counter and histogram totals are differenced.
+
+        - counters: the delta goes to ``<name>{process=...}`` (registered
+          even at zero) and to the unlabelled total, unless the name is in
+          ``rollup_exclude`` (a total the parent already folds another way);
+        - gauges: set on the process child; the unlabelled gauge is the
+          parent's own;
+        - histograms: bucket deltas into the process child and (same
+          ``rollup_exclude`` rule) the unlabelled histogram;
+        - label children (``sample()['series']``): their label set gains
+          ``process``, with no unlabelled rollup.
+        """
+        wm_counters = watermarks.setdefault("counters", {})
+        wm_series = watermarks.setdefault("series", {})
+        wm_hist = watermarks.setdefault("histograms", {})
+        for name, total in (sample.get("counters") or {}).items():
+            family = self.counter(name)
+            child = family.labels(process=process)
+            delta = int(total) - wm_counters.get(name, 0)
+            wm_counters[name] = int(total)
+            if delta > 0:
+                child.inc(delta)
+                if name not in rollup_exclude:
+                    family.inc(delta)
+        for name, value in (sample.get("gauges") or {}).items():
+            self.gauge(name).labels(process=process).set(value)
+        for name, triple in (sample.get("histograms") or {}).items():
+            pairs, total, sum_value = triple
+            family = self.histogram(name)
+            child = family.labels(process=process)
+            items, n_delta, sum_delta = _diff_cum_pairs(pairs, total, sum_value, wm_hist.setdefault(name, {}))
+            child.ingest_bucket_deltas(items, n_delta, sum_delta)
+            if name not in rollup_exclude:
+                family.ingest_bucket_deltas(items, n_delta, sum_delta)
+        series = sample.get("series") or {}
+        for name, rows in (series.get("counters") or {}).items():
+            family = self.counter(name)
+            for pairs, total in rows:
+                labels = {str(k): v for k, v in pairs}
+                labels["process"] = process
+                key = (name,) + tuple(sorted((str(k), str(v)) for k, v in pairs))
+                child = family.labels(**labels)
+                delta = int(total) - wm_series.get(key, 0)
+                wm_series[key] = int(total)
+                if delta > 0:
+                    child.inc(delta)
+        for name, rows in (series.get("gauges") or {}).items():
+            family = self.gauge(name)
+            for pairs, value in rows:
+                labels = {str(k): v for k, v in pairs}
+                labels["process"] = process
+                family.labels(**labels).set(value)
+
+    def hottest_series(self, process: str, n: int = 5) -> List[Dict]:
+        """The top ``n`` counter series folded for one ``process`` label
+        value, by one-minute rate and then total (``/debug/processes``)."""
+        counters, _gauges, _histograms = self._sorted_items()
+        rows = []
+        for name, c in counters:
+            for child in c.children():
+                labels = dict(child.labelset)
+                if labels.get("process") != process:
+                    continue
+                rest = tuple(p for p in child.labelset if p[0] != "process")
+                rows.append({
+                    "series": name + render_labels(rest),
+                    "total": child.value,
+                    "per_minute": child.rate_per_minute(),
+                })
+        rows.sort(key=lambda r: (-r["per_minute"], -r["total"], r["series"]))
+        return rows[:n]

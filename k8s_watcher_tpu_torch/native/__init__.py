@@ -1,1 +1,2 @@
-"""The watch-frame prefilter (the Python scanner)."""
+"""The watch-frame prefilter: the native scanner (``fastscan.cpp``, built with
+``g++`` at first use) and the Python scanner it degrades to."""

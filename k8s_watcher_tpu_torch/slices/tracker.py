@@ -47,9 +47,9 @@ class _Member:
     ready: bool
     restarts: int = 0
     node_name: Optional[str] = None
-    # node-plane health: a member on a NotReady node is degraded even while
-    # its pod still reads Running. The node plane is not ported yet, so it
-    # stays True; payloads carry it as the reference's do
+    # node-plane health (nodes/tracker.py): a member on a NotReady node is
+    # degraded even while its pod still reads Running — eviction lags the
+    # node drop by minutes
     node_ready: bool = True
 
 
@@ -173,9 +173,16 @@ class SliceTracker:
         # checkpointed {key: {"phase", "ever_ready"}} applied lazily when the
         # slice is first observed again after a restart
         self._restored: Dict[str, Any] = {}
-        # observe() runs on the watch thread; debug_snapshot()/snapshot() on
-        # HTTP/checkpoint paths
+        # observe() runs on the watch thread; note_node() on the node-watch
+        # thread; debug_snapshot()/snapshot() on HTTP/checkpoint paths
         self._lock = threading.RLock()
+        # name -> node still exists (False = observed deleted). Alive
+        # NotReady entries persist (bounded by cluster size) so a pod
+        # scheduled onto a known-down node starts node-down; deleted-node
+        # entries are pruned once no slice member references them — GKE
+        # repair/autoscale mints fresh names, so they'd otherwise
+        # accumulate forever in a long-lived leader.
+        self._down_nodes: Dict[str, bool] = {}
         # uid -> (labels, annotations, nodeSelector, chips, SliceIdentity):
         # identity inference re-derives the same frozen SliceIdentity from
         # the same metadata on every event of a pod's life — cache it per
@@ -184,6 +191,23 @@ class SliceTracker:
         # from observe() (the single ingest drain thread); evicted on
         # DELETED and size-bounded against uid-churn pathology.
         self._ident_cache: Dict[str, tuple] = {}
+        # node_name -> number of live members scheduled on it, maintained at
+        # the two member-mutation sites in _observe_locked. Makes the
+        # "is this node still referenced?" pruning checks O(1) instead of a
+        # full member walk under the watch thread's lock on every event.
+        self._node_refs: Dict[str, int] = {}
+        # node-plane existence provider (set_node_existence_provider)
+        self._node_existence = None
+
+    def _node_ref_delta_locked(self, name: Optional[str], delta: int) -> None:
+        if not name:
+            return
+        new = self._node_refs.get(name, 0) + delta
+        if new > 0:
+            self._node_refs[name] = new
+        else:
+            self._node_refs.pop(name, None)
+
     # -- counted member mutation (every tracker-side member write goes
     # through these two, so SliceState.counts stays exact) -----------------
 
@@ -304,6 +328,7 @@ class SliceTracker:
         if event.type == EventType.DELETED:
             removed = self._member_pop_locked(state, uid)
             if removed is not None:
+                self._node_ref_delta_locked(removed.node_name, -1)
                 disruption = extract_disruption(event.pod)
                 if disruption is not None:
                     state.last_disruption = {"worker": removed.name, **disruption}
@@ -326,6 +351,7 @@ class SliceTracker:
                 # falls back to the Ready condition); None = not precomputed
                 ready = pod_ready(pod)
                 restarts = 0 if ready_tuple == () else pod_restarts(pod)
+            node_up = self._node_up_locked(node_name)
             prev = state.members.get(uid)
             if (
                 prev is not None
@@ -333,6 +359,7 @@ class SliceTracker:
                 and prev.ready == ready
                 and prev.restarts == restarts
                 and prev.node_name == node_name
+                and prev.node_ready == node_up
             ):
                 # status noise: nothing the aggregate depends on moved, so
                 # skip the member replace AND the recompute — the dominant
@@ -344,6 +371,11 @@ class SliceTracker:
                     "expected_workers": identity.expected_workers,
                     "observed_workers": len(state.members),
                 }, []
+            if prev is None or prev.node_name != node_name:
+                # node_name changes at most once per pod (None -> scheduled)
+                if prev is not None:
+                    self._node_ref_delta_locked(prev.node_name, -1)
+                self._node_ref_delta_locked(node_name, +1)
             self._member_set_locked(state, uid, _Member(
                 uid=uid,
                 name=event.name,
@@ -352,11 +384,20 @@ class SliceTracker:
                 ready=ready,
                 restarts=restarts,
                 node_name=node_name,
+                node_ready=node_up,
             ))
 
         if state.members:
             state.ever_had_members = True
         notifications = self._recompute_locked(state)
+        if removed is not None and removed.node_name:
+            # the pod may have held a deleted node's last reference — drop
+            # the down-entry now instead of waiting for an unrelated
+            # note_node() call. Two dict lookups: O(1) even under
+            # mass-teardown churn
+            name = removed.node_name
+            if self._down_nodes.get(name) is False and self._node_refs.get(name, 0) == 0:
+                del self._down_nodes[name]
 
         slice_info = {
             "key": identity.key,
@@ -366,6 +407,29 @@ class SliceTracker:
             "observed_workers": len(state.members),
         }
         return slice_info, notifications
+
+    def _node_up_locked(self, node_name) -> bool:
+        """Best current belief about a member's node when folding it in:
+        not in the down-set, and — when a node plane with a full cluster
+        view is wired — actually existing. The existence check closes the
+        startup-order hole where the node plane lists (and reconciles) an
+        empty slice tracker before pod events fold the members in: a member
+        landing on a node the synced node plane has never seen starts
+        node-down instead of silently READY."""
+        if not node_name:
+            return True  # unscheduled pod: no node verdict to apply
+        if node_name in self._down_nodes:
+            return False
+        if self._node_existence is not None:
+            return self._node_existence(node_name) is not False  # None = can't prove absence
+        return True
+
+    def set_node_existence_provider(self, provider) -> None:
+        """Wire the node plane's existence answer (``name -> Optional[bool]``,
+        None = view can't prove absence). Called under the slice lock; the
+        provider must not call back into this tracker."""
+        with self._lock:
+            self._node_existence = provider
 
     def _recompute_locked(self, state: SliceState) -> List[Dict[str, Any]]:
         """Re-aggregate one slice's phase; emit the transition notification
@@ -385,6 +449,77 @@ class SliceTracker:
             notifications.append(summary)
             if new_phase == SlicePhase.TERMINATED:
                 del self._slices[state.identity.key]
+        return notifications
+
+    # -- node-plane integration (nodes/tracker.py) -------------------------
+
+    def note_node(
+        self, node_name: str, ready: bool, *, exists: bool = True
+    ) -> List[Dict[str, Any]]:
+        """Fold a node readiness change into every slice with a member on
+        that node. Returns slice notifications (a NotReady node typically
+        flips its slices to Degraded minutes before pod eviction would).
+
+        ``exists=False`` records a node observed DELETED: its down-entry is
+        pruned once no slice member references it, unlike an alive NotReady
+        node whose entry persists until the node recovers."""
+        if not node_name:
+            return []
+        notifications: List[Dict[str, Any]] = []
+        with self._lock:
+            if ready:
+                self._down_nodes.pop(node_name, None)
+            else:
+                self._down_nodes[node_name] = exists
+            for state in list(self._slices.values()):
+                touched = False
+                for uid, member in list(state.members.items()):
+                    if member.node_name == node_name and member.node_ready != ready:
+                        # replace, don't mutate: debug_snapshot() formats
+                        # shallow-copied member dicts outside the lock
+                        self._member_set_locked(
+                            state, uid, dataclasses.replace(member, node_ready=ready)
+                        )
+                        touched = True
+                if touched:
+                    notifications.extend(self._recompute_locked(state))
+            self._prune_down_nodes_locked()
+        return notifications
+
+    def _prune_down_nodes_locked(self) -> None:
+        """Drop DELETED-node entries no slice member references; alive
+        NotReady entries stay (see ``_down_nodes``)."""
+        unreferenced = [
+            n for n, exists in self._down_nodes.items()
+            if not exists and self._node_refs.get(n, 0) == 0
+        ]
+        for name in unreferenced:
+            del self._down_nodes[name]
+
+    def reconcile_nodes(self, present_nodes) -> List[Dict[str, Any]]:
+        """Mark members on nodes ABSENT from ``present_nodes`` (the full
+        node-list result) node-down. Covers deletions the watch never saw:
+        a node removed while the watcher was down/unstarted has no DELETED
+        event to fold, but a fresh list proves it is gone."""
+        present = set(present_nodes)
+        notifications: List[Dict[str, Any]] = []
+        with self._lock:
+            for state in list(self._slices.values()):
+                touched = False
+                for uid, member in list(state.members.items()):
+                    if member.node_name and member.node_name not in present and member.node_ready:
+                        self._down_nodes[member.node_name] = False  # observed absent
+                        self._member_set_locked(
+                            state, uid, dataclasses.replace(member, node_ready=False)
+                        )
+                        touched = True
+                if touched:
+                    notifications.extend(self._recompute_locked(state))
+            # sweep entries orphaned by paths with no inline prune (e.g. a
+            # member's node_name changing on MODIFIED) — each reconcile is
+            # already a full-list operation, so the O(down_nodes) walk is
+            # noise here, unlike on the per-event observe() path
+            self._prune_down_nodes_locked()
         return notifications
 
     # -- checkpoint integration -------------------------------------------

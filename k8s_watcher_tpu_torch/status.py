@@ -22,7 +22,9 @@
   watch-to-view histogram;
 - ``/debug/history``: the history WAL's segment inventory;
 - ``/debug/health``: the health plane's subjects, verdicts and actions;
-- ``/debug/slo``: the SLO engine's objectives and burn rates.
+- ``/debug/slo``: the SLO engine's objectives and burn rates;
+- ``/debug/processes``: the ingest reader processes' supervision rows, each
+  with its hottest process-labelled counter series.
 
 A route whose plane is not wired answers 404 naming the config key.
 
@@ -181,6 +183,11 @@ class _StatusHandler(BaseHTTPRequestHandler):
     slo_health = None  # Callable[[], dict]: the SLO verdict, folded into the /healthz body
     node_health = None  # Callable[[], dict]: the health plane's detail
     node_health_fold = None  # Callable[[], dict]: its verdict, folded into the /healthz body
+    processes = None  # Callable[[], dict]: reader-process supervision rows
+    # Callable[[], dict]: the reader processes' verdict, folded into the
+    # /healthz body (stale stats degrade it, never liveness: the supervisor
+    # already respawns a dead reader)
+    processes_fold = None
     auth_token: Optional[str] = None
 
     def log_message(self, *a):
@@ -243,6 +250,8 @@ class _StatusHandler(BaseHTTPRequestHandler):
                 body["slo"] = self.slo_health()
             if self.node_health_fold is not None:
                 body["health"] = self.node_health_fold()
+            if self.processes_fold is not None:
+                body["processes"] = self.processes_fold()
             self._json(200 if alive else 503, body)
         elif parsed.path == "/debug/events":
             if self.audit is None:
@@ -310,6 +319,11 @@ class _StatusHandler(BaseHTTPRequestHandler):
                 self._json(404, {"error": "health plane not enabled (health.enabled)"})
                 return
             self._json(200, {"health": self.node_health()})
+        elif parsed.path == "/debug/processes":
+            if self.processes is None:
+                self._json(404, {"error": "no worker processes (ingest.processes: 0)"})
+                return
+            self._json(200, {"processes": self.processes()})
         else:
             self._json(404, {"error": f"no route {self.path}"})
 
@@ -339,6 +353,8 @@ class StatusServer:
         slo_health: Optional[Callable[[], dict]] = None,
         node_health: Optional[Callable[[], dict]] = None,
         node_health_fold: Optional[Callable[[], dict]] = None,
+        processes: Optional[Callable[[], dict]] = None,
+        processes_fold: Optional[Callable[[], dict]] = None,
         auth_token: Optional[str] = None,
     ):
         handler = type(
@@ -362,6 +378,8 @@ class StatusServer:
                 "slo_health": staticmethod(slo_health) if slo_health else None,
                 "node_health": staticmethod(node_health) if node_health else None,
                 "node_health_fold": staticmethod(node_health_fold) if node_health_fold else None,
+                "processes": staticmethod(processes) if processes else None,
+                "processes_fold": staticmethod(processes_fold) if processes_fold else None,
                 "auth_token": auth_token,
             },
         )

@@ -151,6 +151,7 @@ class Trace:
         "lane_enter",
         "handed_off",
         "spans",
+        "process",
     )
 
     def __init__(
@@ -183,6 +184,7 @@ class Trace:
         self.lane_enter: float = 0.0  # stamped by Dispatcher.submit
         self.handed_off = False  # True once a Notification carries this trace
         self.spans: List[tuple] = []
+        self.process: Optional[str] = None  # origin worker (imported traces)
 
     def add_span(self, stage: str, start: float, end: float) -> None:
         self.spans.append((stage, start, end))
@@ -237,6 +239,10 @@ class Trace:
             "slowest_stage": self.slowest_stage(),
             "spans": spans,
         }
+        if self.process is not None:
+            # only traces imported over the process pool's stats frame
+            # carry their origin worker; local entries keep their shape
+            out["process"] = self.process
         return out
 
 
@@ -252,6 +258,58 @@ def wire_trace(trace: "Trace") -> Dict[str, Any]:
         "uid": trace.uid,
         "spans": [[stage, round(start - t0, 6), round(end - t0, 6)] for stage, start, end in list(trace.spans)],
     }
+
+
+def export_trace(trace: "Trace") -> Dict[str, Any]:
+    """The process pool's stats-frame form of a completed worker trace: the
+    compact ``wire_trace`` spans plus the terminal metadata the parent ring
+    needs to answer ``/debug/trace`` (outcome, anomaly verdict, kind,
+    duration). Span offsets stay worker-monotonic differences, never
+    compared across the process boundary."""
+    out = wire_trace(trace)
+    duration = trace.duration_seconds()
+    out.update(
+        name=trace.name,
+        event_type=trace.event_type,
+        kind=trace.kind,
+        shard=trace.shard,
+        sampled_by=trace.sampled_by,
+        outcome=trace.outcome,
+        anomaly=trace.anomaly,
+        duration=round(duration, 6) if duration is not None else None,
+    )
+    return out
+
+
+def trace_from_wire(wire: Dict, *, process: Optional[str] = None) -> Trace:
+    """Rebuild an ``export_trace`` dict (read off a worker's stats frame) as
+    a parent-ring ``Trace`` at origin ``t0=0.0`` with the exported span
+    offsets, carrying the origin worker in ``process``."""
+    trace = Trace(
+        str(wire.get("id") or new_trace_id()),
+        uid=str(wire.get("uid") or ""),
+        name=str(wire.get("name") or ""),
+        event_type=str(wire.get("event_type") or ""),
+        t0=0.0,
+        shard=wire.get("shard"),
+        sampled_by=str(wire.get("sampled_by") or "head"),
+    )
+    trace.kind = str(wire.get("kind") or "pod")
+    trace.process = process
+    for span in wire.get("spans") or ():
+        try:
+            stage, start, end = span
+            trace.add_span(str(stage), float(start), float(end))
+        except (TypeError, ValueError):
+            continue
+    trace.outcome = wire.get("outcome")
+    trace.anomaly = bool(wire.get("anomaly"))
+    duration = wire.get("duration")
+    if duration is not None:
+        trace.end = float(duration)
+    elif trace.spans:
+        trace.end = max(end for _stage, _start, end in trace.spans)
+    return trace
 
 
 class TraceSampler:
@@ -353,12 +411,17 @@ class Tracer:
         ring_size: int = 256,
         metrics=None,  # metrics.MetricsRegistry, optional
         enabled: bool = True,
+        export_buffer=None,  # bounded deque; a reader process's export
     ):
         self.enabled = enabled
         self.sample_rate = sample_rate
         self.sampler = TraceSampler(sample_rate)
         self.ring = TraceRing(ring_size)
         self.metrics = metrics
+        # in a reader process every finished trace also lands here as its
+        # export_trace() dict, drained onto the pipe by the stats loop; a
+        # deque(maxlen=N) keeps the newest
+        self.export_buffer = export_buffer
 
     # -- head sampling (ingest hot path) -----------------------------------
 
@@ -431,6 +494,8 @@ class Tracer:
         trace.end = end if end is not None else time.monotonic()
         trace.anomaly = outcome in ANOMALY_OUTCOMES or trace.sampled_by == "anomaly"
         self.ring.record(trace)
+        if self.export_buffer is not None:
+            self.export_buffer.append(export_trace(trace))
         metrics = self.metrics
         if metrics is not None:
             metrics.counter("trace_completed").inc()

@@ -174,3 +174,49 @@ class FakeWatchSource:
 
     def stop(self) -> None:
         self._stop.set()
+
+
+def build_node(
+    name: str,
+    *,
+    ready: bool = True,
+    tpu_chips: int = 4,
+    tpu_accelerator: Optional[str] = "tpu-v5p-slice",
+    tpu_topology: Optional[str] = "2x2x2",
+    labels: Optional[Dict[str, str]] = None,
+    unschedulable: bool = False,
+    resource_key: str = "google.com/tpu",
+    resource_version: str = "1",
+) -> Dict[str, Any]:
+    """Build a Node dict in k8s REST JSON shape (for node-plane tests).
+
+    ``tpu_chips=0`` with no accelerator label makes a plain CPU node.
+    """
+    labels = dict(labels or {})
+    if tpu_accelerator and tpu_chips > 0:
+        labels.setdefault("cloud.google.com/gke-tpu-accelerator", tpu_accelerator)
+        if tpu_topology:
+            labels.setdefault("cloud.google.com/gke-tpu-topology", tpu_topology)
+    allocatable: Dict[str, Any] = {"cpu": "8", "memory": "32Gi"}
+    if tpu_chips > 0:
+        allocatable[resource_key] = str(tpu_chips)
+    node: Dict[str, Any] = {
+        "apiVersion": "v1",
+        "kind": "Node",
+        "metadata": {"name": name, "labels": labels, "resourceVersion": resource_version},
+        "spec": {},
+        "status": {
+            "allocatable": dict(allocatable),
+            "capacity": dict(allocatable),
+            "conditions": [
+                {
+                    "type": "Ready",
+                    "status": "True" if ready else "False",
+                    "reason": "KubeletReady" if ready else "KubeletNotReady",
+                }
+            ],
+        },
+    }
+    if unschedulable:
+        node["spec"]["unschedulable"] = True
+    return node

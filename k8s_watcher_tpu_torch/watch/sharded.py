@@ -291,6 +291,11 @@ class ShardedWatchSource:
             # plane's per-event tax for no extra fidelity
             yield batch
 
+    def join(self, timeout: float = 5.0) -> None:
+        """Wait up to ``timeout`` for each shard pump thread to end."""
+        for t in self._threads:
+            t.join(timeout=timeout)
+
     # -- checkpoint integration (merged across shards) ---------------------
 
     def known_pods(self) -> Optional[Dict[str, Any]]:

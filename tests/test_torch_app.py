@@ -13,7 +13,7 @@ Under the ``production`` rules the result must also equal
 against. The watcher's status routes answer alike with and without the
 bearer; a restart from the checkpoint synthesizes the same DELETED for pods
 deleted while down; the app with the probe on runs with ``device="cpu"``;
-and every unported plane is refused at construction. With the serving and
+and only federation and relay are refused at construction. With the serving and
 analytics planes on, both apps' ``/serve/fleet`` snapshots and
 ``/serve/analytics`` bodies agree, and the JAX package's ``ResumeLoop``
 following the port's serve plane through the churn folds to the same state.
@@ -22,11 +22,19 @@ With the history, health and SLO planes on as well, both apps answer the same
 verdicts into the ``/healthz`` body, and after a stop and a restart from
 their WALs resume a token minted before the stop with deltas, not a
 re-snapshot. ``development`` builds every plane it enables, as shipped.
+``staging`` and ``production`` run as shipped with ``--cpu`` against the JAX
+package's mock apiserver (Leases and nodes served): the slice forms and a
+NotReady node degrades it; two ``production`` apps on one Lease leave the
+standby silent, watch-free and alive until the leader stops, then it takes
+over within ``retry_period`` plus a margin; ``ingest.processes: 2`` POSTs pod
+by pod what the in-process streams POST; and the card run's node-churn rule
+holds against both packages' pipelines.
 """
 
 import copy
 import dataclasses
 import json
+import os
 import socket
 import threading
 import time
@@ -92,7 +100,7 @@ def free_port():
 
 def small_cluster(seed, namespace):
     return chip_smoke.GpuCluster(seed, nodes=16, pods=200, jobsets=16, workers=4, churn=600, failures=2,
-                                 down_deletions=3, jobset_namespace=namespace)
+                                 down_deletions=3, jobset_namespace=namespace, node_flips=4)
 
 
 def make_config(pkg, environment, server_url, workdir, *, status_port=0, probe=False, coalesce=True, planes=()):
@@ -393,17 +401,16 @@ def test_probe_without_a_gpu_is_refused_at_construction(tmp_path):
 def test_unported_plane_is_refused(tmp_path, key):
     config = make_config("port", "production", "http://127.0.0.1:1", tmp_path)
     section, _, field = key.rpartition(".")
-    if key == "ingest.processes":
-        config = dataclasses.replace(config, ingest=dataclasses.replace(config.ingest, processes=1))
-    elif key == "tpu.node_watch.enabled":
-        config = dataclasses.replace(config, tpu=dataclasses.replace(config.tpu, node_watch_enabled=True))
-    elif key == "watcher.leader_election.enabled":
-        config = dataclasses.replace(config, watcher=dataclasses.replace(
-            config.watcher, leader_election=dataclasses.replace(config.watcher.leader_election, enabled=True)))
-    else:
-        config = dataclasses.replace(config, **{section: dataclasses.replace(getattr(config, section), enabled=True)})
+    config = dataclasses.replace(config, **{section: dataclasses.replace(getattr(config, section), enabled=True)})
     with pytest.raises(ConfigError, match=f"config key '{key}'.*not yet ported"):
         WatcherApp(config, notifier=Recorder())
+
+
+def test_only_federation_and_relay_are_refused():
+    assert [key for key, _ in UNPORTED_PLANES] == ["federation.enabled", "relay.enabled"]
+    for environment in ("development", "staging", "production"):
+        config = load_app_config(environment, CONFIG_DIR, env={})
+        assert not any(enabled(config) for _, enabled in UNPORTED_PLANES), environment
 
 
 def test_analytics_without_a_gpu_is_refused_at_construction(tmp_path):
@@ -558,3 +565,269 @@ def test_development_as_shipped_builds_every_plane_it_enables(tmp_path):
     assert app.health is not None and app.slo is not None and app.analytics is not None
     assert app.history is None and not config.history.enabled
     assert app.health.view is app.serve.view
+
+
+# -- leader election, the node plane and the reader processes ------------------
+
+
+def tpu_cluster():
+    """A mock cluster of four TPU nodes (GKE TPU node labels, as the shipped
+    node selectors expect) under one 8-worker JobSet, Running and ready."""
+    from k8s_watcher_tpu.watch.fake import build_node, build_pod
+
+    mock = MockCluster()
+    for i in range(4):
+        mock.add_node(build_node(f"tpu-node-{i}"))
+    for i in range(8):
+        mock.add_pod(build_pod(
+            f"w-{i}", "default", uid=f"uid-w-{i}", phase="Running", tpu_chips=4, tpu_topology="2x2x2",
+            node_name=f"tpu-node-{i % 4}",
+            gke_slice_fields={"jobset.sigs.k8s.io/jobset-name": "train", "batch.kubernetes.io/job-completion-index": i},
+            container_statuses=[{"name": "main", "ready": True, "restart_count": 0, "state": {"running": {}}}]))
+    return mock
+
+
+def shipped_config(environment, server_url, workdir, **watcher_kw):
+    """``environment`` as shipped, every plane on, pointed at the mock
+    apiserver through a kubeconfig, with free ports, a small probe and the
+    state under ``workdir``."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    kubeconfig = workdir / "kubeconfig.json"
+    kubeconfig.write_text(json.dumps({
+        "apiVersion": "v1", "kind": "Config", "current-context": "m",
+        "clusters": [{"name": "m", "cluster": {"server": server_url}}],
+        "contexts": [{"name": "m", "context": {"cluster": "m", "user": "m"}}],
+        "users": [{"name": "m", "user": {"token": "t"}}],
+    }))
+    config = load_app_config(environment, CONFIG_DIR, env={
+        "WATCHER_STATUS_TOKEN": TOKEN, "WATCHER_CHECKPOINT_PATH": str(workdir / "ck.json"),
+        "WATCHER_HISTORY_DIR": str(workdir / "history")})
+    return dataclasses.replace(
+        config,
+        kubernetes=dataclasses.replace(config.kubernetes, use_incluster_config=False, config_file=str(kubeconfig),
+                                       watch_timeout_seconds=10),
+        watcher=dataclasses.replace(config.watcher, status_port=free_port(), **watcher_kw),
+        serve=dataclasses.replace(config.serve, port=0),
+        tpu=dataclasses.replace(config.tpu, probe_interval_seconds=0.5, probe_hbm_bytes=2 << 20, probe_matmul_size=64,
+                                probe_payload_bytes=4096),
+    )
+
+
+def _wait(predicate, timeout=WAIT_S):
+    deadline = time.monotonic() + timeout
+    while not predicate():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(0.05)
+    return True
+
+
+def _kinds(recorder, kind):
+    return [p for p in recorder.snapshot() if p.get("event_type") == kind]
+
+
+@pytest.mark.parametrize("environment", ["staging", "production"])
+def test_shipped_environment_runs_on_the_cpu(tmp_path, environment):
+    """``staging`` (two reader processes on the native prefilter, the node
+    watch) and ``production`` (leader election, the node watch) as shipped,
+    with ``--cpu``: the slice forms, a NotReady node degrades it, the status
+    routes answer, the stop is prompt and, in production, releases the
+    Lease."""
+    mock = tpu_cluster()
+    server = FastMockApiServer(mock).start()
+    recorder = Recorder()
+    try:
+        config = shipped_config(environment, server.url, tmp_path)
+        app = WatcherApp(config, notifier=recorder, device="cpu", expected_platform="cpu")
+        thread = threading.Thread(target=app.run, daemon=True)
+        thread.start()
+        assert _wait(lambda: any(p["phase_transition"]["to"] == "Ready"
+                                 for p in _kinds(recorder, "SLICE_PHASE_CHANGE")))
+        assert _wait(lambda: app.node_watcher is not None and app.node_watcher.synced.is_set())
+        mock.set_node_ready("tpu-node-1", False)
+        assert _wait(lambda: _kinds(recorder, "NODE_CONDITION_CHANGE")
+                     and _kinds(recorder, "SLICE_PHASE_CHANGE")[-1]["phase_transition"]["to"] == "Degraded")
+        port = config.watcher.status_port
+        healthz = _get(port, "/healthz")
+        processes = _get(port, "/debug/processes", TOKEN)
+        lease = mock.get_lease("default", config.watcher.leader_election.lease_name)
+        pids = app.ingest.worker_pids() if environment == "staging" else []
+        t0 = time.monotonic()
+        app.stop()
+        thread.join(WAIT_S)
+        stop_s = time.monotonic() - t0
+        lease_after = mock.get_lease("default", config.watcher.leader_election.lease_name)
+    finally:
+        server.stop()
+    assert not thread.is_alive() and stop_s < 10.0
+    assert healthz[0] == 200 and healthz[1]["alive"] is True
+    (node,) = _kinds(recorder, "NODE_CONDITION_CHANGE")
+    assert node["node"] == "tpu-node-1" and node["ready"] is False and node["tpu"]["chips"] == 4
+    degraded = _kinds(recorder, "SLICE_PHASE_CHANGE")[-1]
+    assert {w["node"] for w in degraded["workers"] if not w["node_ready"]} == {"tpu-node-1"}
+    if environment == "staging":
+        assert [p["name"] for p in _kinds(recorder, "ADDED")] and lease is None
+        rows = processes[1]["processes"]["workers"]
+        assert processes[0] == 200 and [r["process"] for r in rows] == ["ingest-shard-0", "ingest-shard-1"]
+        assert [h["scanners"] for h in (e.last_hello for e in app.ingest.endpoints)] == [["NativeFrameScanner"]] * 2
+        assert healthz[1]["processes"]["processes"] == 2
+        assert len(pids) == 2 and not any(os.path.exists(f"/proc/{p}") for p in pids)
+    else:
+        assert processes[0] == 404 and "processes" not in healthz[1]
+        assert lease["spec"]["holderIdentity"] and lease_after["spec"]["holderIdentity"] == ""
+
+
+def test_standby_holds_no_watch_and_takes_over(tmp_path):
+    """Two ``production`` apps on one Lease, at the shipped timings: the
+    standby keeps its status routes and liveness but opens no watch and
+    sends nothing; once the leader stops (releasing the Lease) it takes over
+    within ``retry_period`` plus a margin, lists and notifies."""
+    mock = tpu_cluster()
+    server = FastMockApiServer(mock).start()
+    apps, recorders, threads = {}, {}, {}
+    try:
+        for replica in ("a", "b"):
+            config = shipped_config("production", server.url, tmp_path / replica, leader_election=dataclasses.replace(
+                load_app_config("production", CONFIG_DIR, env={}).watcher.leader_election,
+                identity=f"replica-{replica}"))
+            recorders[replica] = Recorder()
+            apps[replica] = WatcherApp(config, notifier=recorders[replica], device="cpu", expected_platform="cpu")
+            threads[replica] = threading.Thread(target=apps[replica].run, daemon=True)
+        le = apps["a"].config.watcher.leader_election
+        threads["a"].start()
+        assert _wait(lambda: _kinds(recorders["a"], "SLICE_PHASE_CHANGE"))
+        threads["b"].start()
+        assert _wait(lambda: apps["b"].elector is not None and apps["b"].status_server is not None)
+        time.sleep(2 * le.retry_period_seconds)
+        standby = apps["b"]
+        assert not standby.elector.is_leader and standby.node_watcher is None
+        assert standby.ingest._threads == [] and recorders["b"].snapshot() == []
+        assert standby.liveness.alive()
+        assert _get(standby.config.watcher.status_port, "/healthz")[1]["alive"] is True
+        assert mock.get_lease("default", le.lease_name)["spec"]["holderIdentity"] == "replica-a"
+        apps["a"].stop()
+        threads["a"].join(WAIT_S)
+        t0 = time.monotonic()
+        assert _wait(lambda: standby.elector.is_leader, le.retry_period_seconds + 3.0)
+        takeover_s = time.monotonic() - t0
+        assert _wait(lambda: _kinds(recorders["b"], "SLICE_PHASE_CHANGE"))
+        lease = mock.get_lease("default", le.lease_name)
+        standby.stop()
+        threads["b"].join(WAIT_S)
+    finally:
+        server.stop()
+    assert takeover_s < le.retry_period_seconds + 3.0
+    assert lease["spec"]["holderIdentity"] == "replica-b" and lease["spec"]["leaseTransitions"] == 1
+    assert not threads["a"].is_alive() and not threads["b"].is_alive()
+
+
+def test_reader_processes_post_what_in_process_ingest_posts(tmp_path):
+    """``staging``'s two shard streams read by two spawned reader processes
+    POST, pod by pod, the same payloads as the same two streams read in
+    process, on the same churn; and both end where the plain staging fold
+    ends. (Across shards the order is per shard only, so the slice phase a
+    pod payload carries and the slices' intermediate transitions may differ
+    between the runs; each slice's last phase may not.)"""
+    namespaces = load_app_config("staging", CONFIG_DIR, env={}).watcher.namespaces
+    cluster = small_cluster(5, "staging")
+    last, transitions = chip_smoke.fold_production(
+        chip_smoke.GpuCluster.facts(cluster.initial) + chip_smoke.GpuCluster.facts(cluster.churn),
+        namespaces=namespaces, critical=False)
+    final = {k: t[-1][1] for k, t in transitions.items()}
+    got = {}
+    for processes in (2, 0):
+        side = Side("port", cluster, "staging", tmp_path / str(processes), coalesce=False)
+        config = side.config()
+        config = dataclasses.replace(config, ingest=dataclasses.replace(config.ingest, shards=2, processes=processes))
+        recorder = Recorder()
+        app = WatcherApp(config, notifier=recorder)
+        thread = threading.Thread(target=app.run, daemon=True)
+        try:
+            thread.start()
+            # the LIST first, so the churn reaches both runs as watch events
+            assert _wait(lambda: app.metrics.counter("events_received").value >= len(cluster.initial))
+            side.apply(cluster.churn)
+            assert _wait(lambda: summary(recorder.snapshot())[1] == last and {
+                k: t[-1][1] for k, t in summary(recorder.snapshot())[2].items()} == final), processes
+            assert app.dispatcher.drain(WAIT_S)
+            app.stop()
+            thread.join(WAIT_S)
+        finally:
+            side.close()
+        assert not thread.is_alive()
+        per_pod = {}
+        for p in recorder.snapshot():
+            if p.get("event_type") in ("ADDED", "MODIFIED", "DELETED"):
+                p = strip(p)
+                p.get("tpu", {}).pop("slice", None)
+                per_pod.setdefault(p["uid"], []).append(json.dumps(p, sort_keys=True))
+        got[processes] = per_pod
+    assert got[2] == got[0] and len(got[0]) == len(last)
+
+
+@pytest.mark.parametrize("pkg", ["ref", "port"])
+def test_node_churn_fold_holds_against_the_pipeline(pkg):
+    """The card run's rule for the node plane, held against each package's
+    pipeline, slice tracker and node watcher fed the same steps in one
+    thread: the pods of ``GpuCluster`` under the ``production`` rules, every
+    node listed Ready first, then ``node_steps`` at their positions in the
+    churn. The node payloads equal ``fold_node_payloads``; the slice
+    transitions equal ``fold_production``'s, so every transition the node
+    events cause (``node_caused``) is among them; the pods' last payloads
+    equal the fold's."""
+    from k8s_watcher_tpu.nodes import NodeTracker as RefNodeTracker, NodeWatcher as RefNodeWatcher
+    from k8s_watcher_tpu.pipeline import filters as ref_filters
+    from k8s_watcher_tpu.pipeline.phase import PhaseTracker as RefPhaseTracker
+    from k8s_watcher_tpu.pipeline.pipeline import EventPipeline as RefPipeline
+    from k8s_watcher_tpu.slices.tracker import SliceTracker as RefSliceTracker
+    from k8s_watcher_tpu.watch.source import WatchEvent as RefWatchEvent
+    from k8s_watcher_tpu_torch.nodes import NodeTracker, NodeWatcher
+    from k8s_watcher_tpu_torch.pipeline import filters
+    from k8s_watcher_tpu_torch.pipeline.phase import PhaseTracker
+    from k8s_watcher_tpu_torch.pipeline.pipeline import EventPipeline
+    from k8s_watcher_tpu_torch.slices.tracker import SliceTracker
+    from k8s_watcher_tpu_torch.watch.source import WatchEvent
+
+    parts = {"ref": (RefNodeTracker, RefNodeWatcher, ref_filters, RefPhaseTracker, RefPipeline, RefSliceTracker,
+                     RefWatchEvent),
+             "port": (NodeTracker, NodeWatcher, filters, PhaseTracker, EventPipeline, SliceTracker, WatchEvent)}
+    node_tracker_cls, node_watcher_cls, flt, phase_cls, pipeline_cls, slice_cls, event_cls = parts[pkg]
+    cluster = chip_smoke.GpuCluster(6, nodes=48, pods=600, jobsets=12, workers=4, churn=1500, failures=2,
+                                    down_deletions=2, node_flips=6)
+    key, namespaces = chip_smoke.GPU_KEY, chip_smoke.WATCHED_NAMESPACES
+    sent = []
+    slices = slice_cls("production", resource_key=key)
+    pipe = pipeline_cls(environment="production", sink=sent.append, namespace_filter=flt.NamespaceFilter(namespaces),
+                        resource_filter=flt.TpuResourceFilter(key),
+                        critical_gate=flt.CriticalEventGate("production", True), phase_tracker=phase_cls(),
+                        slice_tracker=slices, resource_key=key)
+    tracker = node_tracker_cls("production", resource_key=key, accelerator_label=chip_smoke.GPU_PRODUCT_LABEL)
+    watcher = node_watcher_cls(None, tracker, sent.append, slice_tracker=slices,
+                               label_selector=chip_smoke.GPU_PRESENT_LABEL)
+    for name in cluster.node_names():
+        watcher._emit("ADDED", chip_smoke.GpuCluster.node(name, True, 1), 0.0)
+    steps = {}
+    for rv, (position, kind, node, ready) in enumerate(cluster.node_steps, start=2):
+        steps.setdefault(position, []).append(
+            (kind, chip_smoke.GpuCluster.node(node, bool(ready) if kind != "DELETED" else True, rv)))
+    for i, (kind, pod) in enumerate(chip_smoke.GpuCluster.pods(cluster.initial + cluster.churn)):
+        for node_kind, node in steps.get(i - len(cluster.initial), ()):
+            watcher._emit(node_kind, node, 0.0)
+        pipe.process_batch([event_cls(type=kind, pod=copy.deepcopy(pod), resource_version=str(i + 1))])
+    node_caused = []
+    last, transitions = chip_smoke.fold_production(
+        chip_smoke.GpuCluster.facts(cluster.initial) + chip_smoke.GpuCluster.facts(cluster.churn),
+        node_steps=[(len(cluster.initial) + p, *rest) for p, *rest in cluster.node_steps], node_caused=node_caused)
+    payloads = [{k: v for k, v in n.payload.items() if k != "event_timestamp"} for n in sent]
+    nodes, seen = {}, {}
+    for p in payloads:
+        if p["event_type"] in ("NODE_CONDITION_CHANGE", "NODE_DELETED"):
+            nodes.setdefault(p["node"], []).append(p)
+        elif p["event_type"] == "SLICE_PHASE_CHANGE":
+            seen.setdefault(p["slice"], []).append((p["phase_transition"]["from"], p["phase_transition"]["to"]))
+    _, last_seen, _ = summary(payloads)
+    assert nodes == chip_smoke.fold_node_payloads(cluster.node_steps, "production")
+    assert seen == transitions
+    assert len(node_caused) >= len(cluster.flipped_nodes) + 1
+    assert all((a, b) in seen[k] for k, a, b in node_caused)
+    assert last_seen == last

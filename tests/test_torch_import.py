@@ -13,7 +13,10 @@ the watcher, ``python -m k8s_watcher_tpu_torch development --cpu``, with the
 temporary config that points it at a local receiver and turns the probe on:
 it must notify, answer ``/healthz`` (with the health and SLO folds),
 ``/serve/fleet`` and ``/serve/analytics``, hold no JAX module, and exit 0
-within 10 s of SIGINT.
+within 10 s of SIGINT. ``staging --cpu`` and ``production --cpu`` run the
+same way against a mock apiserver that serves Leases and nodes, with no plane
+switched off. A spawned ingest reader process, after the imports a
+production reader makes, holds neither torch nor jax.
 """
 
 import json
@@ -25,10 +28,12 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
 
+import pytest
 import yaml
 
 REPO = Path(__file__).resolve().parent.parent
@@ -73,6 +78,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "notify.client", "notify.dispatcher", "k8s.kubeconfig", "k8s.client",
                    "remediate", "remediate.actuator", "remediate.policy",
                    "serve", "serve.view", "serve.columns", "serve.broadcast", "serve.server",
+                   "k8s.leader", "nodes", "nodes.tracker", "nodes.watcher", "native.build",
+                   "parallel.procpool", "watch.procpool",
                    "analytics", "analytics.encode", "analytics.backend", "analytics.kernels",
                    "analytics.whatif", "analytics.plane"):
         assert f"k8s_watcher_tpu_torch.{module}" in result["modules"], module
@@ -240,3 +247,106 @@ def test_watcher_entry_point_runs_on_the_cpu_and_stops_on_sigint(tmp_path):
     assert pods and all(auth == "Bearer test-key" for _, auth, _ in handler.posts)
     assert pods[0]["name"] == "mock-tpu-pod"
     assert "Starting k8s-watcher-tpu (PyTorch) in 'development' environment" in out
+
+
+def test_spawned_reader_imports_no_torch():
+    from k8s_watcher_tpu_torch.watch.procpool import ProcessShardedWatchSource, WorkerPlan
+    from test_torch_proc_factories import modules_factory
+
+    source = ProcessShardedWatchSource([WorkerPlan(proc_index=0, processes=1, owned_shards=(0,), shards=1,
+                                                   source_factory=modules_factory)])
+    got = [event for batch in source.batches() for event in batch]
+    assert [e.name for e in got] == ["modules"]
+    assert json.loads(got[0].pod["metadata"]["annotations"]["loaded"]) == []
+    assert source.worker_stats()["hellos"][0]["pid"] != os.getpid()
+
+
+def _shipped_overlay(tmp_path, environment, receiver_port, apiserver_url):
+    """A config dir where ``environment`` is as shipped, pointed at local
+    servers (kubeconfig, receiver), free ports, a small probe, the state
+    under ``tmp_path``."""
+    config_dir = tmp_path / "config"
+    config_dir.mkdir()
+    shutil.copy(REPO / "config" / "base.yaml", config_dir / "base.yaml")
+    kubeconfig = tmp_path / "kubeconfig"
+    kubeconfig.write_text(json.dumps({
+        "apiVersion": "v1", "kind": "Config", "current-context": "m",
+        "clusters": [{"name": "m", "cluster": {"server": apiserver_url}}],
+        "contexts": [{"name": "m", "context": {"cluster": "m", "user": "m"}}],
+        "users": [{"name": "m", "user": {"token": "t"}}],
+    }))
+    overlay = yaml.safe_load((REPO / "config" / f"{environment}.yaml").read_text())
+    overlay["kubernetes"] = {"use_incluster_config": False, "config_file": str(kubeconfig)}
+    overlay["clusterapi"]["base_url"] = f"http://127.0.0.1:{receiver_port}"
+    overlay["watcher"]["status_port"] = _free_port()
+    overlay["serve"]["port"] = _free_port()
+    overlay["tpu"]["probe"].update({"interval_seconds": 0.5, "hbm_bytes": 2 << 20, "matmul_size": 64,
+                                    "payload_bytes": 4096})
+    (config_dir / f"{environment}.yaml").write_text(yaml.safe_dump(overlay))
+    return overlay
+
+
+@pytest.mark.parametrize("environment", ["staging", "production"])
+def test_shipped_environment_entry_point_runs_on_the_cpu(tmp_path, environment):
+    from k8s_watcher_tpu.k8s.mock_server import MockApiServer, MockCluster
+    from k8s_watcher_tpu.watch.fake import build_node, build_pod
+
+    cluster = MockCluster()
+    cluster.add_node(build_node("tpu-node-0"))
+    cluster.add_pod(build_pod("w-0", "default", uid="uid-w-0", phase="Running", tpu_chips=4, node_name="tpu-node-0"))
+    handler = type("Receiver", (_Receiver,), {"posts": []})
+    receiver = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    threading.Thread(target=receiver.serve_forever, daemon=True).start()
+    server = MockApiServer(cluster).start()
+    overlay = _shipped_overlay(tmp_path, environment, receiver.server_address[1], server.url)
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "MASTER_ADDR", "RANK", "LOCAL_RANK")}
+    env.update(PYTHONPATH=str(REPO), OMP_NUM_THREADS="1", WATCHER_STATUS_TOKEN="tok",
+               STAGING_CLUSTERAPI_API_KEY="k", PROD_CLUSTERAPI_API_KEY="k",
+               WATCHER_CHECKPOINT_PATH=str(tmp_path / "ck.json"), WATCHER_HISTORY_DIR=str(tmp_path / "history"))
+    modules = tmp_path / "modules.json"
+    proc = subprocess.Popen([sys.executable, "-c", _WATCHER, environment, str(modules)], cwd=str(tmp_path), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    status_port = overlay["watcher"]["status_port"]
+    try:
+        healthz = processes = None
+        deadline = time.monotonic() + 90
+        while time.monotonic() < deadline and proc.poll() is None:
+            if "TPU_PROBE" in {p.get("event_type") for _, _, p in _payloads(handler.posts)} and \
+                    (environment == "production" or "ADDED" in {p.get("event_type")
+                                                                for _, _, p in _payloads(handler.posts)}):
+                with urllib.request.urlopen(f"http://127.0.0.1:{status_port}/healthz", timeout=5) as r:
+                    healthz = json.loads(r.read())
+                request = urllib.request.Request(f"http://127.0.0.1:{status_port}/debug/processes",
+                                                 headers={"Authorization": "Bearer tok"})
+                try:
+                    with urllib.request.urlopen(request, timeout=5) as r:
+                        processes = json.loads(r.read())
+                except urllib.error.HTTPError as exc:
+                    processes = exc.code
+                break
+            time.sleep(0.2)
+        assert proc.poll() is None, proc.stdout.read()[-3000:]
+        # the node watch is live: a NotReady node is notified
+        cluster.set_node_ready("tpu-node-0", False)
+        while time.monotonic() < deadline and "NODE_CONDITION_CHANGE" not in {
+                p.get("event_type") for _, _, p in _payloads(handler.posts)}:
+            time.sleep(0.1)
+        lease = cluster.get_lease("default", "k8s-watcher-tpu")
+        proc.send_signal(signal.SIGINT)
+        out, _ = proc.communicate(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        receiver.shutdown()
+        receiver.server_close()
+        server.stop()
+    assert proc.returncode == 0, out[-3000:]
+    assert "config key" not in out and healthz is not None and healthz["alive"] is True, out[-3000:]
+    assert json.loads(modules.read_text()) == []
+    assert "NODE_CONDITION_CHANGE" in {p.get("event_type") for _, _, p in _payloads(handler.posts)}
+    if environment == "staging":
+        assert [w["process"] for w in processes["processes"]["workers"]] == ["ingest-shard-0", "ingest-shard-1"]
+    else:
+        assert processes == 404 and lease["spec"]["holderIdentity"]
+        assert cluster.get_lease("default", "k8s-watcher-tpu")["spec"]["holderIdentity"] == ""

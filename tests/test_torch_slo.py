@@ -2,9 +2,8 @@
 
 The JAX package's ``tests/test_slo.py`` runs again through the port
 (``test_torch_replay``), and so do ``TestLabeledMetrics`` and
-``TestFreshnessAndSloRoutes`` of ``tests/test_observability.py``, less the
-process-labelled exposition (``fold_sample``: the process pools, not carried
-yet; ``ROADMAP.md`` section C). Then the same seeded traffic is recorded into
+``TestFreshnessAndSloRoutes`` of ``tests/test_observability.py``, the
+process-labelled exposition (``fold_sample``) included. Then the same seeded traffic is recorded into
 both packages' registries (a latency histogram, a counter pair, a labelled
 gauge) and both engines tick on one fake clock: every tick's objectives, burn
 rates and verdicts, the registries' samples (with their label series too) and
@@ -38,8 +37,6 @@ _observability = replay("test_observability.py", keep=("k8s_watcher_tpu.probe",)
 globals().update(replayed_tests(
     _observability,
     only=("TestLabeledMetrics", "TestFreshnessAndSloRoutes"),
-    # fold_sample folds a worker process's registry: the process pools
-    leave_out=("TestLabeledMetrics.test_process_labeled_exposition_is_byte_stable",),
 ))
 
 RAW = {
