@@ -74,7 +74,40 @@ Phases, each fatal on failure (exit code 1, no result line):
    staging rules (at-least-once: the last payload per pod and slice), the
    node watch, ``/debug/processes``, 3 healthy probe cycles with every kernel
    launched, a stop under 10 s that leaves no reader process; it prints the
-   LIST and churn times, the frames per second and the prefiltered share.
+   LIST and churn times, the frames per second and the prefiltered share;
+12. the federator: three upstream serving planes of the port on 127.0.0.1
+   (a ``FleetView`` with a history WAL behind a bearer token each) holding
+   phase 10's fleet, 16,384 JobSets of 8 GPU workers (131,072 pods over
+   16,384 nodes), split over ``us-east``, ``us-west`` and ``eu-west``, with a
+   seeded churn of workers lost and replaced on all three at once; the
+   federator is ``production``'s ``WatcherApp`` with federation on over the
+   three, trace joining and the health plane's freshness source on, every
+   other plane as shipped, beside its own cluster of 128 nodes and 1,000
+   pods. In process: merged equals the union of the upstream snapshots once
+   materialized and at the end; a port ``ResumeLoop`` and 16 watch streams in
+   a child process fold the global view with no gap or duplicate; one
+   upstream is stopped mid-churn (WAL drained): ``/healthz`` reports
+   ``federation.healthy`` false within ``stale_after_seconds`` plus 5 s with
+   liveness 200, the health plane's freshness source sees its watermark age
+   grow and the others keep flowing; restarted on its port and directory it
+   is resumed with the held token (no resync) and ``/healthz`` recovers;
+   analytics over the merged view on the card equal the numpy backend and
+   the plain reference (a summary, a 32-scenario what-if draining one
+   upstream); a sampled pod's ``/debug/trace?uid=`` answers the joined
+   journey and ``/debug/trace/diagnosis`` names a slowest stage per upstream.
+   Then again with ``federation.processes: 2``: each merge worker owns an
+   upstream, one is SIGKILLed mid-churn and respawns, merged equals the
+   union at the end, ``/debug/processes`` lists both and the stop leaves
+   none. Both runs: 3 healthy probe cycles with every kernel launched, a
+   stop under 10 s; it prints the time to materialize, the upstream delta to
+   global view latency, the merged deltas per second, the resyncs, the
+   analytics times beside phase 10's and the respawn time;
+13. the relay: ``production``'s ``WatcherApp`` with ``relay.enabled`` (serve
+   only) in front of one phase-12 upstream: 64 watch streams on the relay
+   fold to the root's ``/serve/fleet``, the relay encodes no frame while the
+   root does, resume tokens cross the tier both ways, ``/debug/relay``
+   reports depth 1, a restart with ``backfill`` resumes a pre-stop token
+   with deltas, and the probe runs healthy beside it.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -648,11 +681,17 @@ def model_digest(model: dict) -> str:
 # read with one selector and folded each into its own model, gaps and
 # duplicates counted. Commands on stdin: "cut" closes stream 0 and resumes it
 # with its token; "finish R" records each stream's (rv, digest) once its token
-# reaches R, prints the result and exits.
+# reaches R, prints the result and exits. An optional fourth argument
+# "msgpack" reads the streams as msgpack frames with freshness stamps.
 SUBSCRIBER_CHILD = r"""
 import hashlib, http.client, json, os, selectors, socket, sys, time
 
 port, token, n = int(sys.argv[1]), sys.argv[2], int(sys.argv[3])
+if len(sys.argv) > 4 and sys.argv[4] == "msgpack":
+    import msgpack
+    decode, accept, query = (lambda b: msgpack.unpackb(b, raw=False)), "Accept: application/x-msgpack\r\n", "&fresh=1"
+else:
+    decode, accept, query = json.loads, "", ""
 
 
 def digest(model):
@@ -672,14 +711,15 @@ class Stream:
     def __init__(self, rv, model):
         self.rv, self.model = rv, model
         self.frames = self.deltas = self.gaps = self.dups = self.compacted = self.gone = 0
+        self.gone_frame = None
         self.sanction_to = -1
         self.at = None
         self.connect()
 
     def connect(self):
         self.sock = socket.create_connection(("127.0.0.1", port))
-        self.sock.sendall(("GET /serve/fleet?watch=1&rv=%d&view=%s&timeout=300 HTTP/1.1\r\nHost: smoke\r\n"
-                           "Authorization: Bearer %s\r\n\r\n" % (self.rv, view, token)).encode())
+        self.sock.sendall(("GET /serve/fleet?watch=1&rv=%d&view=%s&timeout=300%s HTTP/1.1\r\nHost: smoke\r\n"
+                           "Authorization: Bearer %s\r\n%s\r\n" % (self.rv, view, query, token, accept)).encode())
         self.sock.setblocking(False)
         self.buf, self.status, self.first_sync, self.open = b"", None, None, True
         sel.register(self.sock, selectors.EVENT_READ, self)
@@ -697,15 +737,19 @@ class Stream:
             if not sep:
                 return
             self.status, self.buf = int(head.split(b" ", 2)[1]), rest
+        # walk the chunks by offset and cut the buffer once: slicing it per
+        # frame costs the whole backlog for every frame of a large read
+        buf, pos = self.buf, 0
         while self.status == 200:
-            line, sep, rest = self.buf.partition(b"\r\n")
-            if not sep:
-                return
-            size = int(line, 16)
-            if size == 0 or len(rest) < size + 2:
-                return
-            self.frame(json.loads(rest[:size]))
-            self.buf = rest[size + 2:]
+            end = buf.find(b"\r\n", pos)
+            if end < 0:
+                break
+            size = int(buf[pos:end], 16)
+            if size == 0 or len(buf) < end + 2 + size + 2:
+                break
+            self.frame(decode(buf[end + 2:end + 2 + size]))
+            pos = end + 2 + size + 2
+        self.buf = buf[pos:]
 
     def frame(self, f):
         self.frames += 1
@@ -719,6 +763,7 @@ class Stream:
             self.sanction_to = f["to_rv"]
         elif kind == "GONE":
             self.gone += 1
+            self.gone_frame = f
         else:
             rv = f["rv"]
             if rv <= self.rv:
@@ -769,9 +814,12 @@ while True:
             stream.close()
     if target is None:
         continue
-    for stream in streams:
+    for n, stream in enumerate(streams):
         if stream.at is None and stream.rv >= target:
-            stream.at = (stream.rv, digest(stream.model))
+            # a fold equal to an earlier stream's at the same rv shares its digest
+            same = next((s for s in streams[:n] if s.at is not None and s.at[0] == stream.rv
+                         and s.model == stream.model), None)
+            stream.at = same.at if same is not None else (stream.rv, digest(stream.model))
     if all(s.at is not None for s in streams) or time.monotonic() > deadline:
         break
 if resumed is not None:
@@ -779,16 +827,17 @@ if resumed is not None:
     resumed.update(status=s0.status, first_sync=s0.first_sync, deltas_after=s0.deltas - resumed["deltas_before"])
 print(json.dumps({"resumed": resumed, "streams": [
     {"at": s.at, "status": s.status, "open": s.open, "frames": s.frames, "deltas": s.deltas, "gaps": s.gaps,
-     "dups": s.dups, "compacted": s.compacted, "gone": s.gone} for s in streams]}), flush=True)
+     "dups": s.dups, "compacted": s.compacted, "gone": s.gone, "gone_frame": s.gone_frame}
+    for s in streams]}), flush=True)
 """
 
 
 class Subscribers:
-    """Phase 9's ``SUBSCRIBERS`` watch streams, read in a child process so
+    """Watch streams (phase 9, 12 and 13), read in a child process so
     that they do not share the watcher's interpreter."""
 
-    def __init__(self, port: int, token: str, n: int):
-        self.proc = subprocess.Popen([sys.executable, "-c", SUBSCRIBER_CHILD, str(port), token, str(n)],
+    def __init__(self, port: int, token: str, n: int, wire: str = "json"):
+        self.proc = subprocess.Popen([sys.executable, "-c", SUBSCRIBER_CHILD, str(port), token, str(n), wire],
                                      stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
         self.ready = self._line(60)
 
@@ -837,10 +886,11 @@ class AnalyticsPoller(threading.Thread):
             self.halt.wait(max(0.0, ANALYTICS_EVERY_S - (time.monotonic() - t0)))
 
 
-def states_at(deltas, rvs) -> dict:
+def states_at(deltas, rvs, base: dict = None) -> dict:
     """``{rv: {(kind, key): object}}``: the view's state at each wanted rv,
-    folded once from a journal that starts at rv 1."""
-    wanted, out, state, i = sorted(set(rvs)), {}, {}, 0
+    folded once from ``base`` (the state before the first delta; default
+    empty, for a journal that starts at rv 1)."""
+    wanted, out, state, i = sorted(set(rvs)), {}, dict(base or {}), 0
     for d in deltas:
         while i < len(wanted) and wanted[i] < d.rv:
             out[wanted[i]] = dict(state)
@@ -878,10 +928,10 @@ def comparable(body: dict) -> dict:
     return json.loads(json.dumps({k: v for k, v in body.items() if k not in ("rv", "backend")}))
 
 
-def draw_scenarios(rng, nodes, n: int = SCENARIOS) -> list:
-    """baseline, a drain of the local cluster, and ``n - 2`` cordons of 1-16
-    nodes drawn with ``rng``."""
-    out = [{"kind": "baseline"}, {"kind": "drain_cluster", "cluster": ""}]
+def draw_scenarios(rng, nodes, n: int = SCENARIOS, drain: str = "") -> list:
+    """baseline, a drain of the cluster ``drain`` (default: the local one),
+    and ``n - 2`` cordons of 1-16 of ``nodes`` drawn with ``rng``."""
+    out = [{"kind": "baseline"}, {"kind": "drain_cluster", "cluster": drain}]
     for _ in range(n - len(out)):
         out.append({"kind": "cordon_nodes", "nodes": rng.sample(nodes, rng.randint(1, 16))})
     return out
@@ -1351,16 +1401,17 @@ class GcPauses:
 
 
 def watcher_config(config_dir: str, receiver_url: str, apiserver_url: str, workdir: str, *, probe_interval: float,
-                   environment: str = "production"):
-    """``environment`` as the port's ``load_app_config`` loads it, every plane
-    as shipped, with these overrides: the serving plane and the status routes
+                   environment: str = "production", overlay: dict = None):
+    """``environment`` as the port's ``load_app_config`` loads it (with
+    ``overlay`` merged over the files before the schema reads them), every
+    plane as shipped, with these overrides: the serving plane and the status routes
     on free ports, the GPU backend and resource key, the node plane's
     accelerator label and node selector pointed at the GPU operator's node
     labels (``nvidia.com/gpu.product``, ``nvidia.com/gpu.present``; both
     shipped selectors name GKE TPU labels), the probe interval, and the
     watcher pointed at local servers, a temporary checkpoint and a temporary
     history WAL."""
-    from k8s_watcher_tpu_torch.config import load_app_config
+    from k8s_watcher_tpu_torch.config import AppConfig, deep_merge, load_raw_config
 
     kubeconfig = os.path.join(workdir, "kubeconfig")
     with open(kubeconfig, "w") as fh:
@@ -1370,14 +1421,17 @@ def watcher_config(config_dir: str, receiver_url: str, apiserver_url: str, workd
             "contexts": [{"name": "stub", "context": {"cluster": "stub", "user": "stub"}}],
             "users": [{"name": "stub", "user": {"token": "stub-token"}}],
         }, fh)
-    config = load_app_config(environment, config_dir, env={
+    raw = load_raw_config(environment, config_dir, env={
         "CLUSTERAPI_BASE_URL": receiver_url, "PROD_CLUSTERAPI_API_KEY": API_KEY, "STAGING_CLUSTERAPI_API_KEY": API_KEY,
         "WATCHER_STATUS_TOKEN": STATUS_TOKEN,
         "WATCHER_CHECKPOINT_PATH": os.path.join(workdir, "checkpoint.json"),
         "WATCHER_HISTORY_DIR": os.path.join(workdir, "history"),
     })
-    if not (config.history.enabled and config.health.enabled and config.slo.enabled and config.tpu.node_watch_enabled):
+    shipped = AppConfig.from_raw(raw, environment)
+    if not (shipped.history.enabled and shipped.health.enabled and shipped.slo.enabled
+            and shipped.tpu.node_watch_enabled):
         fail(f"the {environment} settings no longer enable the history, health, SLO and node planes")
+    config = AppConfig.from_raw(deep_merge(raw, overlay), environment) if overlay else shipped
     return dataclasses.replace(
         config, serve=dataclasses.replace(config.serve, port=free_port()),
         watcher=dataclasses.replace(config.watcher, status_port=free_port()),
@@ -2317,11 +2371,12 @@ def fleet_scale_view(seed: int, *, jobsets: int = 16384, workers: int = 8, nodes
     return view, node_names
 
 
-def analytics_phase(torch, dev, name: str, power_limit: str, seed: int, config) -> None:
+def analytics_phase(torch, dev, name: str, power_limit: str, seed: int, config) -> dict:
     """Phase 10: analytics over ``fleet_scale_view`` on the card, on the
     numpy backend and through the plain reference (which must agree), with
-    their times. The plain reference takes seconds per 32-scenario call, so
-    it is timed over one call to keep the phase within 30 s."""
+    their times (returned). The plain reference takes seconds per
+    32-scenario call, so it is timed over one call to keep the phase within
+    30 s."""
     t0 = time.monotonic()
     view, nodes = fleet_scale_view(seed)
     _, cols = view.fleet_columns()
@@ -2333,6 +2388,899 @@ def analytics_phase(torch, dev, name: str, power_limit: str, seed: int, config) 
         "clusters": len(cols.clusters), "nodes": len(nodes), "workers_up": int(cols.w_up.sum()),
         "build_s": built_s, **timings, "phase_s": time.monotonic() - t0, "device": name, "power_limit": power_limit,
     }))
+    return timings
+
+
+# -- phases 12 and 13: the federator and the relay --------------------------------
+
+#: the upstream clusters of phase 12, named so that ``shard_of(name, 2)``
+#: gives each of two merge workers at least one (us-east and us-west on
+#: worker 0, eu-west on worker 1)
+FED_UPSTREAMS = ("us-east", "us-west", "eu-west")
+FED_SUBSCRIBERS = 16
+RELAY_SUBSCRIBERS = 64
+FED_TRACE_EVERY = 16  # every 16th churn step's replacement pod carries a sampled journey
+#: the WAL segment cap of phase 12's views. A segment rotates once its bytes,
+#: the opening snapshot's included, reach the cap, so a snapshot past
+#: production's 16 MiB (the global view's is ~50 MB, an upstream's ~16 MB)
+#: would rewrite the whole view on every writer drain (both packages;
+#: ROADMAP.md section C)
+FLEET_SEGMENT_BYTES = 256 << 20
+
+
+class FederatedFleet:
+    """Phase 12's three upstream clusters, seeded: ``jobsets`` JobSets of
+    ``workers`` GPU workers, JobSet ``j`` in ``clusters[j % 3]`` on
+    ``workers`` distinct nodes of its own cluster (``nodes`` split evenly,
+    named after the cluster), ``down_share`` of the workers Pending; the
+    objects are those phase 10 builds, keyed as the upstream's own view
+    holds them. ``step(cluster)`` is the next churn step of one cluster
+    (each cluster churns from its own seeded stream): a JobSet loses a
+    worker (Failed, its slice Degraded, the pod deleted) and gets a
+    replacement on another of the cluster's nodes (Pending, then Running
+    and ready, the slice back to its phase), seven view items in order."""
+
+    def __init__(self, seed: int = 0, *, clusters=FED_UPSTREAMS, jobsets: int = 16384, workers: int = 8,
+                 nodes: int = 16384, down_share: float = 1 / 16):
+        rng = random.Random(seed)
+        self.clusters = tuple(clusters)
+        self.workers = workers
+        k = len(self.clusters)
+        self.nodes = fleet_nodes(self.clusters, nodes)
+        total = jobsets * workers
+        down = set(rng.sample(range(total), int(total * down_share)))
+        self.pods = {c: {} for c in self.clusters}  # cluster -> uid -> object
+        self.slices = {c: {} for c in self.clusters}  # cluster -> slice key -> [member uid per worker]
+        self._serial = {c: 0 for c in self.clusters}
+        self._rngs = {c: random.Random(seed * 1000 + 7 * n + 1) for n, c in enumerate(self.clusters)}
+        self._keys = {c: [] for c in self.clusters}
+        self.steps_taken = {c: 0 for c in self.clusters}
+        for j in range(jobsets):
+            cluster = self.clusters[j % k]
+            jobset = f"train-{j:05d}"
+            members = []
+            for w, node in enumerate(rng.sample(self.nodes[cluster], workers)):
+                up = j * workers + w not in down
+                members.append(self._new_pod(cluster, jobset, w, node, "Running" if up else "Pending", up))
+            self.slices[cluster][f"production/{jobset}/workers"] = members
+            self._keys[cluster].append(f"production/{jobset}/workers")
+
+    def _new_pod(self, cluster: str, jobset: str, w: int, node: str, phase: str, ready: bool) -> str:
+        self._serial[cluster] += 1
+        uid = f"{cluster}-uid-{self._serial[cluster]:06d}"
+        self.pods[cluster][uid] = {"kind": "pod", "key": uid, "name": f"{jobset}-workers-0-{w}-{self._serial[cluster]}",
+                                   "namespace": "production", "phase": phase, "ready": ready, "node": node,
+                                   "pod_resource_version": str(self._serial[cluster])}
+        return uid
+
+    def _slice(self, cluster: str, key: str) -> dict:
+        members = []
+        for w, uid in enumerate(self.slices[cluster][key]):
+            pod = self.pods[cluster][uid]
+            members.append({"name": pod["name"], "worker_index": w, "phase": pod["phase"], "ready": pod["ready"],
+                            "restarts": 0, "node": pod["node"], "node_ready": True})
+        ready = sum(1 for m in members if m["ready"])
+        name = key.split("/")[1]
+        return {"kind": "slice", "key": key, "slice": key, "namespace": "production", "name": name,
+                "chips_per_worker": 8, "total_chips": 8 * len(members), "expected_workers": None,
+                "observed_workers": len(members), "ready_workers": ready,
+                "phase": "Ready" if ready == len(members) else "Degraded", "workers": members}
+
+    def objects(self, cluster: str) -> dict:
+        """``{(kind, key): object}``: the cluster's current state."""
+        out = {("pod", uid): dict(obj) for uid, obj in self.pods[cluster].items()}
+        out.update({("slice", key): self._slice(cluster, key) for key in self.slices[cluster]})
+        return out
+
+    def initial(self, cluster: str) -> list:
+        return [(kind, key, obj) for (kind, key), obj in self.objects(cluster).items()]
+
+    def step(self, cluster: str) -> list:
+        rng = self._rngs[cluster]
+        key = rng.choice(self._keys[cluster])
+        members = self.slices[cluster][key]
+        w = rng.randrange(len(members))
+        old = members[w]
+        used = {self.pods[cluster][uid]["node"] for uid in members}
+        free = [n for n in rng.sample(self.nodes[cluster], min(len(self.nodes[cluster]), len(used) + 8))
+                if n not in used]
+        node = rng.choice(free) if free else self.pods[cluster][old]["node"]
+        items = []
+        self.pods[cluster][old] = dict(self.pods[cluster][old], phase="Failed", ready=False)
+        items += [("pod", old, dict(self.pods[cluster][old])), ("slice", key, self._slice(cluster, key))]
+        del self.pods[cluster][old]
+        new = self._new_pod(cluster, key.split("/")[1], w, node, "Pending", False)
+        members[w] = new
+        items += [("pod", old, None), ("pod", new, dict(self.pods[cluster][new])), ("slice", key, self._slice(cluster, key))]
+        self.pods[cluster][new] = dict(self.pods[cluster][new], phase="Running", ready=True)
+        items += [("pod", new, dict(self.pods[cluster][new])), ("slice", key, self._slice(cluster, key))]
+        self.steps_taken[cluster] += 1
+        return items
+
+
+class UpstreamCluster:
+    """One upstream of phase 12: the port's serving plane on 127.0.0.1 (a
+    ``FleetView`` with a history WAL under ``directory`` and a
+    bearer-authorized ``ServeServer`` on ``port``), as ``production``'s serve
+    and history settings build it (``FLEET_SEGMENT_BYTES`` segments). ``stop()`` stops the server and drains
+    the WAL; ``start()`` again builds a new plane on the same port and
+    directory, its view restored from the WAL."""
+
+    def __init__(self, name: str, directory: str, serve_config, history_config, port: int):
+        from k8s_watcher_tpu_torch.trace import TraceRing
+
+        self.name, self.directory = name, directory
+        self.token = f"{name}-token"
+        self.port = port
+        self.serve_config = dataclasses.replace(serve_config, port=self.port)
+        self.history_config = history_config
+        self.plane = self.history = self.metrics = None
+        self.ring = TraceRing(512)  # the sampled journeys, for a federator's lazy stitch
+        self.lock = threading.Lock()  # held while churn is applied, and across a stop and restart
+
+    def start(self) -> "UpstreamCluster":
+        from k8s_watcher_tpu_torch.history import HistoryStore
+        from k8s_watcher_tpu_torch.metrics import MetricsRegistry
+        from k8s_watcher_tpu_torch.serve import ServePlane
+
+        h = self.history_config
+        self.metrics = MetricsRegistry()
+        self.history = HistoryStore(self.directory, segment_max_bytes=FLEET_SEGMENT_BYTES,
+                                    segment_max_age_seconds=h.segment_max_age_seconds,
+                                    retain_segments=h.retain_segments, fsync=h.fsync,
+                                    fsync_interval_seconds=h.fsync_interval_seconds, metrics=self.metrics)
+        self.history.recover(journal_limit=self.serve_config.compact_horizon)
+        self.plane = ServePlane(self.serve_config, metrics=self.metrics, auth_token=self.token,
+                                history=self.history)
+        self.plane.attach_trace(self.ring)
+        self.plane.start()
+        return self
+
+    @property
+    def view(self):
+        return self.plane.view
+
+    @property
+    def url(self) -> str:
+        return f"http://127.0.0.1:{self.port}"
+
+    def stop(self) -> None:
+        self.plane.stop()
+        self.history.close()
+
+    def encodes(self) -> int:
+        return sum(self.metrics.counter(k).value for k in (
+            "serve_frame_encodes", "serve_frame_encodes_msgpack", "serve_frame_encodes_fresh",
+            "serve_frame_encodes_trace"))
+
+
+class Churn(threading.Thread):
+    """Applies ``FederatedFleet`` churn steps to one upstream's view, one
+    ``apply_batch`` a step (origin stamp: now), until ``steps`` are done.
+    Every ``FED_TRACE_EVERY``-th step's replacement pod carries a sampled
+    journey (a port ``Trace`` whose ``serve_fanout`` span is the upstream's
+    own publish, after a ``pipeline`` span for the step's making), so
+    ``?trace=1`` peers receive it; the finished journey goes to the
+    upstream's ``/debug/trace`` ring."""
+
+    def __init__(self, fleet: FederatedFleet, upstream: UpstreamCluster, steps: int, *, pace_s: float = 0.0):
+        super().__init__(name=f"churn-{upstream.name}", daemon=True)
+        self.fleet, self.upstream, self.steps, self.pace_s = fleet, upstream, steps, pace_s
+        self.done = 0
+        self.traced = []  # upstream uids of the sampled journeys
+        self.failures = []
+
+    def run(self) -> None:
+        from k8s_watcher_tpu_torch.trace import Trace, new_trace_id
+
+        try:
+            for n in range(self.steps):
+                with self.upstream.lock:  # held by the caller while this upstream is down
+                    wall, t0 = time.time(), time.monotonic()
+                    items = [(*item, wall) for item in self.fleet.step(self.upstream.name)]
+                    trace = None
+                    if self.fleet.steps_taken[self.upstream.name] % FED_TRACE_EVERY == 0:
+                        kind, key, obj, _ = items[5]
+                        trace = Trace(new_trace_id(), uid=key, name=obj["name"], namespace=obj["namespace"],
+                                      event_type="MODIFIED", t0=t0)
+                        # the step's making stands for the upstream's pipeline
+                        trace.add_span("pipeline", t0, time.monotonic())
+                        items[5] = (kind, key, obj, wall, trace)
+                        self.traced.append(key)
+                    t_pub = time.monotonic()
+                    self.upstream.view.apply_batch(items)
+                if trace is not None:
+                    trace.add_span("serve_fanout", t_pub, time.monotonic())
+                    trace.end, trace.outcome = time.monotonic(), "published"
+                    self.upstream.ring.record(trace)
+                self.done = n + 1
+                if self.pace_s:
+                    time.sleep(self.pace_s)
+        except Exception as exc:  # noqa: BLE001 — reported by the caller, fatal
+            self.failures.append(repr(exc))
+
+
+def upstreams_main(args: dict) -> None:
+    """The upstreams child's main (``UpstreamsChild``): builds
+    ``FederatedFleet(args["seed"], **args["sizes"])`` into one
+    ``UpstreamCluster`` per cluster on ``args["ports"]`` under
+    ``args["dir"]``, prints one ready line, then answers one JSON line per
+    JSON command on stdin: ``churn`` (start ``Churn`` threads), ``status``,
+    ``stop``/``start`` (one upstream down and back: its churn waits on its
+    lock meanwhile), ``step`` (churn steps applied at once), ``quit``."""
+    from k8s_watcher_tpu_torch.config import load_app_config
+
+    t0 = time.monotonic()
+    fleet = FederatedFleet(args["seed"], **args["sizes"])
+    shipped = load_app_config("production", os.path.join(REPO, "config"), env={})
+    ups = {c: UpstreamCluster(c, os.path.join(args["dir"], c), shipped.serve, shipped.history, args["ports"][c]).start()
+           for c in fleet.clusters}
+    wall = time.time()
+    for c, u in ups.items():
+        items = fleet.initial(c)
+        for i in range(0, len(items), 8192):
+            u.view.apply_batch([(*item, wall) for item in items[i:i + 8192]])
+
+    def state(u):
+        return {"rv": u.view.rv, "instance": u.view.instance, "objects": len(u.view._objects), "encodes": u.encodes()}
+
+    def say(body):
+        sys.stdout.write(json.dumps(body) + "\n")
+        sys.stdout.flush()
+
+    say({"ready": True, "upstreams": {c: state(u) for c, u in ups.items()}, "build_s": time.monotonic() - t0})
+    churns = {}
+    for line in sys.stdin:
+        cmd = json.loads(line)
+        op = cmd["cmd"]
+        u = ups.get(cmd.get("name"))
+        if op == "churn":
+            for c in cmd.get("names") or fleet.clusters:
+                churns[c] = Churn(fleet, ups[c], cmd["steps"], pace_s=cmd["pace"])
+                churns[c].start()
+            say({"ok": True})
+        elif op == "status":
+            say({"upstreams": {c: state(v) for c, v in ups.items()},
+                 "churn": {c: {"done": ch.done, "alive": ch.is_alive(), "failures": ch.failures,
+                               "traced": ch.traced[-8:]} for c, ch in churns.items()}})
+        elif op == "stop":
+            u.lock.acquire()
+            before = state(u)
+            u.stop()
+            say(before)
+        elif op == "start":
+            u.start()
+            u.lock.release()
+            say(state(u))
+        elif op == "step":
+            with u.lock:
+                for _ in range(cmd["steps"]):
+                    u.view.apply_batch([(*item, time.time()) for item in fleet.step(u.name)])
+            say(state(u))
+        elif op == "quit":
+            break
+    for u in ups.values():
+        if u.plane.server is not None:
+            u.stop()
+
+
+UPSTREAMS_CHILD = "import json, sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; " \
+                  "chip_smoke.upstreams_main(json.loads(sys.argv[2]))"
+
+
+class Upstream:
+    """What the federator is told of one upstream."""
+
+    def __init__(self, name: str, port: int):
+        self.name, self.port = name, port
+        self.token = f"{name}-token"
+        self.url = f"http://127.0.0.1:{port}"
+
+
+class UpstreamsChild:
+    """Phase 12's upstreams in a child process, as other clusters' watchers
+    are other processes: ``upstreams_main`` there, driven over its stdin.
+    ``upstreams`` are the three ``Upstream`` s."""
+
+    def __init__(self, seed: int, workdir: str, **sizes):
+        self.upstreams = [Upstream(c, free_port()) for c in FED_UPSTREAMS]
+        args = {"seed": seed, "sizes": sizes, "dir": workdir, "ports": {u.name: u.port for u in self.upstreams}}
+        self.proc = subprocess.Popen([sys.executable, "-c", UPSTREAMS_CHILD, REPO, json.dumps(args)],
+                                     stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        self.ready = self._line(300)
+
+    def _line(self, timeout_s: float) -> dict:
+        ready, _, _ = select.select([self.proc.stdout], [], [], timeout_s)
+        line = self.proc.stdout.readline() if ready else ""
+        if not line:
+            self.close()
+            fail(f"the upstreams child gave no answer within {timeout_s} s (exit {self.proc.poll()})")
+        return json.loads(line)
+
+    def ask(self, timeout_s: float = 60.0, **cmd) -> dict:
+        self.proc.stdin.write(json.dumps(cmd) + "\n")
+        self.proc.stdin.flush()
+        return self._line(timeout_s)
+
+    def status(self) -> dict:
+        return self.ask(cmd="status")
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            try:
+                self.proc.stdin.write(json.dumps({"cmd": "quit"}) + "\n")
+                self.proc.stdin.flush()
+                self.proc.wait(30)
+            except (OSError, subprocess.TimeoutExpired):
+                self.proc.kill()
+                self.proc.wait()
+
+
+
+
+def federator_overlay(upstreams, *, processes: int, trace_join: bool) -> dict:
+    """Phase 12's overrides of ``production``: federation on over
+    ``upstreams`` with their bearer tokens and ``processes`` merge workers,
+    ``trace.federation`` as ``trace_join`` says, the health plane's freshness
+    source on, and ``FLEET_SEGMENT_BYTES`` WAL segments."""
+    return {
+        "federation": {"enabled": True, "processes": processes,
+                       "upstreams": [{"name": u.name, "url": u.url, "token": u.token} for u in upstreams]},
+        "trace": {"federation": {"enabled": trace_join}},
+        "health": {"sources": {"freshness": True}},
+        "history": {"segment_max_bytes": FLEET_SEGMENT_BYTES},
+    }
+
+
+def federator_cluster(seed: int) -> GpuCluster:
+    """The federator's own local cluster (its watch, leader election and
+    node plane run as shipped): 128 nodes and 1,000 pods."""
+    return GpuCluster(seed, nodes=128, pods=1000, jobsets=32, workers=8, churn=2000, failures=2, down_deletions=2,
+                      node_flips=4)
+
+
+def fleet_nodes(clusters, nodes: int) -> dict:
+    """``FederatedFleet``'s node names: node ``i`` in ``clusters[i % k]``."""
+    k = len(clusters)
+    return {c: [f"{c}-gpu-node-{i:05d}" for i in range(n, nodes, k)] for n, c in enumerate(clusters)}
+
+
+class ResumeConsumer(threading.Thread):
+    """A port ``ResumeLoop`` on the federator's ``/serve/fleet``: one
+    snapshot, then long-polls until ``halt``, then a drain."""
+
+    def __init__(self, port: int, token: str):
+        from k8s_watcher_tpu_torch.federate import FleetClient, ResumeLoop
+
+        super().__init__(name="resume-consumer", daemon=True)
+        self.loop = ResumeLoop(FleetClient(f"http://127.0.0.1:{port}", token=token, timeout=60.0))
+        self.snapshot = self.loop.start()
+        self.halt = threading.Event()
+        self.failures = []
+
+    def run(self) -> None:
+        try:
+            while not self.halt.is_set():
+                self.loop.poll(timeout=1.0)
+            self.loop.drain()
+        except Exception as exc:  # noqa: BLE001 — reported by the caller, fatal
+            self.failures.append(repr(exc))
+
+
+def upstream_rvs(app) -> dict:
+    """Each upstream's rv as the federator last applied it (in-process
+    subscribers, or the merge workers' reports)."""
+    fed = app.federation
+    if fed.fanin is not None:
+        return {name: body.get("rv") for name, body in fed.fanin.upstream_report().items()}
+    return {u.name: u.subscriber.rv for u in fed.upstreams}
+
+
+def merged_counts_match(app, status: dict) -> bool:
+    merge = app.federation.merge
+    return all(merge.cluster_object_count(name) == u["objects"] for name, u in status["upstreams"].items())
+
+
+def fetch_union(app, upstreams, token: str):
+    """``(federator snapshot, merged == union)`` over HTTP, each upstream's
+    snapshot read with its own token."""
+    from k8s_watcher_tpu_torch.federate import merged_equals_union
+
+    snaps = {u.name: http_get(u.port, "/serve/fleet", u.token)[1]["objects"] for u in upstreams}
+    status, merged = http_get(app.config.serve.port, "/serve/fleet", token)
+    if status != 200:
+        fail(f"the federator's /serve/fleet answered {status}")
+    return merged, merged_equals_union(merged["objects"], snaps)
+
+
+def federation_phase(dev, name: str, power_limit: str, seed: int, child: UpstreamsChild, nodes: list, *,
+                     processes: int, churn_steps: int, pace_s: float, phase10: dict = None) -> dict:
+    """Phase 12, one federator run: ``python -m k8s_watcher_tpu_torch
+    production``'s ``WatcherApp`` with ``federator_overlay``'s and
+    ``watcher_config``'s overrides, its local cluster ``federator_cluster``,
+    federating ``child``'s three upstreams (over ``nodes``), while
+    ``churn_steps`` churn steps a cluster run on all three at once
+    (``pace_s`` between steps).
+
+    With ``processes == 0`` (trace joining on): merged equals the union once
+    materialized and at the end; a ``ResumeConsumer`` and ``FED_SUBSCRIBERS``
+    watch streams in a child process fold the global view through the churn
+    with no gap or duplicate, to the final snapshot; halfway through its
+    churn the first upstream is stopped (its WAL drained), ``/healthz``
+    reports ``federation.healthy`` false within ``stale_after_seconds`` plus
+    5 s while liveness stays 200, the health plane's freshness source sees
+    its watermark age grow, the other two keep flowing; restarted on the
+    same port and directory, the federator resumes with its token (no
+    resync, no snapshot) and ``/healthz`` recovers; analytics over the
+    merged view on the card equals numpy and the plain reference (a summary,
+    a ``SCENARIOS``-scenario what-if draining one upstream); a sampled pod's
+    ``/debug/trace?uid=`` answers the joined journey and
+    ``/debug/trace/diagnosis`` names a slowest stage per upstream.
+
+    With ``processes == 2`` (trace joining off, as the schema requires):
+    ``fanin_plans`` gives each worker an upstream, one worker is SIGKILLed
+    mid-churn and respawns, merged equals the union at the end,
+    ``/debug/processes`` lists the workers and the stop leaves none.
+
+    Both: at least ``WATCHER_PROBE_CYCLES`` probe cycles healthy with every
+    kernel launched, a stop under ``STOP_LIMIT_S``. Every check is fatal.
+    Returns the run's numbers, its kernel launches under ``"launches"``."""
+    import multiprocessing
+    import signal
+
+    import torch
+
+    from k8s_watcher_tpu_torch.app import WatcherApp
+    from k8s_watcher_tpu_torch.federate import fanin_plans, model_from_objects
+    from k8s_watcher_tpu_torch.kernels import build
+    from k8s_watcher_tpu_torch.serve import FleetView
+
+    t_phase = time.monotonic()
+    label = f"federator (processes {processes})"
+    upstreams = child.upstreams
+    cluster = federator_cluster(seed)
+    stub = ClusterStub(cluster)
+    apiserver = serve_handler(type("StubApi", (_StubHandler,), {"stub": stub}))
+    receiver = serve_handler(_ReceiverHandler, lock=threading.Lock(), payloads=[], item_posts=0, batch_posts=0)
+    workdir = tempfile.TemporaryDirectory()
+    config = watcher_config(os.path.join(REPO, "config"), f"http://127.0.0.1:{receiver.server_address[1]}",
+                            f"http://127.0.0.1:{apiserver.server_address[1]}", workdir.name, probe_interval=1.0,
+                            overlay=federator_overlay(upstreams, processes=processes, trace_join=processes == 0))
+    fed = config.federation
+    plans = [{"worker": p.proc_index, "upstreams": list(p.owned)} for p in fanin_plans(fed)] if processes else []
+    if processes and (len(plans) != processes or any(not p["upstreams"] for p in plans)):
+        fail(f"fanin_plans leaves a merge worker without an upstream: {plans}")
+    if not (config.history.enabled and config.analytics.enabled and config.health.enabled and config.slo.enabled
+            and config.watcher.leader_election.enabled and config.tpu.node_watch_enabled):
+        fail("the production settings no longer enable every plane beside federation")
+    app, runner, errors = app_runner(WatcherApp(config, device=dev))
+    cycles = count_cycles(app._probe_agent, build)
+    m = app.metrics
+    serve_port, status_port = config.serve.port, config.watcher.status_port
+    build.reset_launch_counts()
+    t_start = time.monotonic()
+    runner.start()
+    if not wait_until(lambda: errors or app.serve.server is not None and merged_counts_match(app, child.status()),
+                      180, 0.5):
+        fail(f"{label}: the upstreams did not materialize within 180 s: "
+             f"{[(u.name, app.federation.merge.cluster_object_count(u.name)) for u in upstreams]}")
+    if errors:
+        fail(f"{label} raised: {errors[0]!r}")
+    materialize_s = time.monotonic() - t_start
+    merged, union = fetch_union(app, upstreams, STATUS_TOKEN)
+    if not union:
+        fail(f"{label}: merged != union once materialized")
+    out = {"processes": processes, "materialize_s": materialize_s, "merged_objects": len(merged["objects"]),
+           "plans": plans}
+    consumer = subscribers = None
+    if processes == 0:
+        consumer = ResumeConsumer(serve_port, STATUS_TOKEN)
+        consumer.start()
+        subscribers = Subscribers(serve_port, STATUS_TOKEN, FED_SUBSCRIBERS)
+        streams_rv = subscribers.ready["rv"]
+    pids = [p for p in app.federation.fanin.worker_pids() if p] if processes else []
+    resyncs0 = {k: m.counter(k).value for k in ("federation_resyncs", "federation_snapshots")}
+    deltas0 = m.counter("federation_deltas_applied").value
+    t_churn = time.monotonic()
+    child.ask(cmd="churn", steps=churn_steps, pace=pace_s)
+    victim = upstreams[0]
+
+    def churned(name):
+        return child.status()["churn"][name]["done"]
+
+    if processes == 0:
+        # the first upstream goes dark halfway through its churn
+        if not wait_until(lambda: churned(victim.name) >= churn_steps // 2, 120, 0.1):
+            fail(f"{label}: the churn did not reach its half: {churned(victim.name)}")
+        t_down = time.monotonic()
+        stopped = child.ask(cmd="stop", name=victim.name)
+        others0 = upstream_rvs(app)
+        stale_limit = fed.stale_after_seconds + 5.0
+        degraded = wait_until(lambda: http_get(status_port, "/healthz")[1].get("federation", {})
+                              .get("healthy") is False, stale_limit, 0.25)
+        degrade_s = time.monotonic() - t_down
+        healthz_down = http_get(status_port, "/healthz")
+        # the health plane's freshness source: the victim's watermark age,
+        # as the detector recorded it, tick by tick
+        ages = []
+
+        def age_grew():
+            subject = app.health.snapshot()["subjects"].get(f"upstream/{victim.name}") or {}
+            age = ((subject.get("signals") or {}).get("watermark_age_seconds") or {}).get("value")
+            if age is not None and (not ages or age != ages[-1]):
+                ages.append(age)
+            return len(ages) >= 2 and ages[-1] > ages[0]
+
+        grew = wait_until(age_grew, 4 * config.health.tick_seconds, 0.25)
+        others1 = upstream_rvs(app)
+        down_s = time.monotonic() - t_down
+        # back on the same port and directory, the view restored from its WAL
+        started = child.ask(cmd="start", name=victim.name)
+        t_up = time.monotonic()
+        restarted = (started["rv"], started["instance"]) == (stopped["rv"], stopped["instance"])
+        recovered = wait_until(lambda: http_get(status_port, "/healthz")[1].get("federation", {})
+                               .get("healthy") is True, 60, 0.25)
+        recover_s = time.monotonic() - t_up
+        resyncs1 = {k: m.counter(k).value for k in ("federation_resyncs", "federation_snapshots")}
+        out["outage"] = {
+            "degrade_s": degrade_s, "down_s": down_s, "recover_s": recover_s,
+            "healthz_while_down": {"status": healthz_down[0], "alive": healthz_down[1].get("alive"),
+                                   "federation": {k: (healthz_down[1].get("federation") or {}).get(k)
+                                                  for k in ("healthy", "stale_after_seconds")}},
+            "victim_watermark_ages": ages, "other_rvs_at_stop": others0, "other_rvs_at_restart": others1,
+            "resyncs_before": resyncs0, "resyncs_after": resyncs1, "view_restored": restarted,
+        }
+        if not degraded or healthz_down[0] != 200 or healthz_down[1].get("alive") is not True:
+            fail(f"{label}: /healthz did not report the dark upstream within {stale_limit} s with liveness "
+                 f"200: {healthz_down}")
+        if not grew:
+            fail(f"{label}: the health plane's freshness source did not see {victim.name}'s watermark age grow: "
+                 f"{ages}")
+        if any(others1[u.name] <= others0[u.name] for u in upstreams[1:]):
+            fail(f"{label}: the other upstreams stopped flowing while {victim.name} was down: {others0} -> {others1}")
+        if not restarted:
+            fail(f"{label}: {victim.name}'s view was not restored from its WAL")
+        if not recovered or resyncs1 != resyncs0:
+            fail(f"{label}: no token resume after the restart (recovered {recovered}, {resyncs0} -> {resyncs1})")
+    else:
+        # one merge worker SIGKILLed mid-churn
+        if not wait_until(lambda: min(churned(u.name) for u in upstreams) >= churn_steps // 2, 120, 0.1):
+            fail(f"{label}: the churn did not reach its half: {[churned(u.name) for u in upstreams]}")
+        endpoint = app.federation.fanin.endpoints[0]
+        killed = endpoint.pid
+        t_kill = time.monotonic()
+        os.kill(killed, signal.SIGKILL)
+        if not wait_until(lambda: endpoint.respawns >= 1 and endpoint.pid not in (None, killed)
+                          and (endpoint.last_hello or {}).get("pid") not in (None, killed), 60):
+            fail(f"{label}: merge worker 0 did not respawn within 60 s of its SIGKILL")
+        out["respawn_s"] = time.monotonic() - t_kill
+        out["respawn_hello"] = dict(endpoint.last_hello)
+    wait_until(lambda: not any(c["alive"] for c in child.status()["churn"].values()), 300, 0.2)
+    churn_s = time.monotonic() - t_churn
+    churn = child.status()
+    failures = [f for c in churn["churn"].values() for f in c["failures"]]
+    if failures or any(c["alive"] for c in churn["churn"].values()):
+        fail(f"{label}: the churn failed: {failures or churn['churn']}")
+
+    def caught_up():
+        rvs = upstream_rvs(app)
+        return merged_counts_match(app, churn) and all(rvs.get(n) == u["rv"] for n, u in churn["upstreams"].items())
+
+    if not wait_until(lambda: errors or caught_up(), 120, 0.2):
+        fail(f"{label}: the merged view did not catch up with the upstreams: {upstream_rvs(app)} vs "
+             f"{ {n: u['rv'] for n, u in churn['upstreams'].items()} }")
+    converged_s = time.monotonic() - t_churn
+    merged, union = fetch_union(app, upstreams, STATUS_TOKEN)
+    if not union:
+        fail(f"{label}: merged != union after the churn")
+    merged_deltas = m.counter("federation_deltas_applied").value - deltas0
+    out.update(churn_s=churn_s, converged_s=converged_s, merged_deltas=merged_deltas,
+               merged_deltas_per_s=merged_deltas / converged_s,
+               churn_steps=churn_steps, pace_s=pace_s, final_rv=merged["rv"],
+               watch_to_global_view=m.histogram("watch_to_global_view_seconds").summary(),
+               serve_wire=m.histogram("serve_wire_seconds").summary(),
+               health_tick=m.histogram("health_tick_seconds").summary(),
+               counters={k: m.counter(k).value for k in (
+                   "federation_resyncs", "federation_snapshots", "federation_reconnects",
+                   "federation_heartbeat_stalls", "federation_batches_applied", "federation_stale_transitions",
+                   "fanin_passthrough_frames", "fanin_worker_respawns", "fanin_wire_gaps")})
+    for summary in (out["watch_to_global_view"], out["serve_wire"], out["health_tick"]):
+        summary.pop("buckets_le_s", None)
+    model = model_from_objects(merged["objects"])
+    if processes == 0:
+        consumer.halt.set()
+        consumer.join(120)
+        streams = subscribers.finish(merged["rv"])
+        loop = consumer.loop
+        tail = app.serve.view.read_since(merged["rv"], max_deltas=1 << 30)
+        reached = [loop.rv] + [s["at"][0] for s in streams["streams"] if s["at"]]
+        if tail.status != "ok" or tail.compacted or min(reached) < merged["rv"]:
+            fail(f"{label}: the journal after rv {merged['rv']}: {tail.status}, compacted {tail.compacted}; "
+                 f"consumers reached {sorted(set(reached))}")
+        # the view keeps moving after the churn (the probe's reports fold
+        # into it), so each consumer is held to the state at the rv it reached
+        states = states_at(tail.deltas, reached, base=model)
+        digests = {rv: model_digest(state) for rv, state in states.items()}
+        out["resume_consumer"] = {"polls": loop.polls, "resyncs": loop.resyncs, "rv": loop.rv,
+                                  "gaps": loop.checker.gaps, "dups": loop.checker.dups,
+                                  "delivered": loop.checker.delivered}
+        out["streams"] = {"n": len(streams["streams"]),
+                          "deltas": sum(s["deltas"] for s in streams["streams"]),
+                          "gaps": sum(s["gaps"] for s in streams["streams"]),
+                          "dups": sum(s["dups"] for s in streams["streams"]),
+                          "compacted": sum(s["compacted"] for s in streams["streams"]),
+                          "gone": sum(s["gone"] for s in streams["streams"])}
+        if consumer.failures or consumer.is_alive() or loop.resyncs or not loop.checker.clean \
+                or loop.model != states[loop.rv]:
+            fail(f"{label}: the resume consumer: {out['resume_consumer']} {consumer.failures}")
+        bad = [s for s in streams["streams"] if not s["at"] or s["at"][1] != digests[s["at"][0]] or s["gaps"]
+               or s["dups"] or s["gone"] or s["status"] != 200]
+        if bad:
+            fail(f"{label}: {len(bad)} of {FED_SUBSCRIBERS} watch streams did not fold to the final snapshot "
+                 f"gaplessly (streams from rv {streams_rv}, the view at rv {merged['rv']} with oldest_rv "
+                 f"{app.serve.view.oldest_rv}, {out['streams']}): {bad[:3]}")
+        # analytics over the merged view: the card, numpy and the plain
+        # reference, on the final snapshot's objects (the live view moves on
+        # with every probe report), then the app's own plane over HTTP
+        raw = draw_scenarios(random.Random(seed + 12), nodes, drain=upstreams[1].name)
+        frozen = FleetView()
+        frozen.apply_batch([(kind, key, obj) for (kind, key), obj in model.items()])
+        timings = analytics_timings(torch, frozen, raw, config.analytics, dev, reference_calls=1)
+        status, body = http_get(serve_port, "/serve/analytics?scenarios=" + urllib.parse.quote(json.dumps(raw)),
+                                STATUS_TOKEN)
+        want_body = numpy_plane(model, config.analytics).evaluate(raw)
+        if status != 200 or body.get("backend") != "torch" or comparable(body) != comparable(want_body):
+            fail(f"{label}: /serve/analytics on the card differs from the numpy backend ({status})")
+        drained = next(s for s in body["scenarios"] if s["scenario"].get("kind") == "drain_cluster")
+        out["analytics"] = {**timings, "phase10": phase10,
+                            "drain_slices_losing_quorum": len(drained.get("slices_losing_quorum") or ())}
+        # the joined journey of a sampled pod, and the per-upstream diagnosis
+        traced = churn["churn"][upstreams[2].name]["traced"]
+        uid = traced[-1] if traced else None
+        trace = http_get(status_port, f"/debug/trace?uid={urllib.parse.quote(uid or '')}", STATUS_TOKEN)
+        diagnosis = http_get(status_port, "/debug/trace/diagnosis", STATUS_TOKEN)
+        joined = [t for t in (trace[1].get("traces") or []) if t.get("cluster") == upstreams[2].name]
+        stages = [s["stage"] for s in joined[0]["spans"]] if joined else []
+        tail = [s for s in stages if s in ("serve_wire", "federate_merge", "global_serve")]
+        slowest = {u: d.get("slowest_stage") for u, d in (diagnosis[1].get("diagnosis") or {})
+                   .get("upstreams", {}).items()}
+        out["trace"] = {"uid": uid, "stages": stages, "stitched": len(trace[1].get("stitched") or []),
+                        "slowest_stage": slowest,
+                        "joined_traces": (diagnosis[1].get("diagnosis") or {}).get("joined_traces")}
+        if trace[0] != 200 or tail != ["serve_wire", "federate_merge", "global_serve"] or stages[0] != "pipeline":
+            fail(f"{label}: /debug/trace?uid={uid} did not answer the joined journey: {trace}")
+        if diagnosis[0] != 200 or sorted(slowest) != sorted(u.name for u in upstreams) or not all(slowest.values()):
+            fail(f"{label}: /debug/trace/diagnosis: {diagnosis}")
+    else:
+        processes_route = http_get(status_port, "/debug/processes", STATUS_TOKEN)
+        rows = (processes_route[1].get("processes") or {}).get("workers", []) if processes_route[0] == 200 else []
+        out["processes_route"] = [{k: r.get(k) for k in ("process", "pid", "respawns", "wire_gaps")} for r in rows]
+        if len(rows) != processes or sorted(r["respawns"] for r in rows) != [0, 1] or any(
+                r["wire_gaps"] for r in rows):
+            fail(f"{label}: /debug/processes: {processes_route}")
+        pids += [p for p in app.federation.fanin.worker_pids() if p]
+    if not wait_until(lambda: sum(1 for c in cycles if c["end"] > t_churn) >= WATCHER_PROBE_CYCLES, 60):
+        fail(f"{label}: {sum(1 for c in cycles if c['end'] > t_churn)} probe cycles ran during and after the churn")
+    healthz = http_get(status_port, "/healthz")
+    t_stop = time.monotonic()
+    app.stop()
+    runner.join(60)
+    stop_s = time.monotonic() - t_stop
+    launches = build.launch_counts()
+    alive_after = [p for p in pids if os.path.exists(f"/proc/{p}")] + [c.pid for c in multiprocessing.active_children()]
+    stub.closing.set()
+    for server in (apiserver, receiver):
+        server.shutdown()
+        server.server_close()
+    workdir.cleanup()
+    out.update(healthz={"status": healthz[0], "alive": healthz[1].get("alive"),
+                        "federation_healthy": (healthz[1].get("federation") or {}).get("healthy")},
+               probe_cycles=[{k: c[k] for k in ("healthy", "duration_ms", "launches")} for c in cycles],
+               stop_s=stop_s, launches=launches, phase_s=time.monotonic() - t_phase, device=name, power_limit=power_limit)
+    print(f"{label}: " + json.dumps(out))
+    if runner.is_alive() or stop_s > STOP_LIMIT_S or alive_after:
+        fail(f"{label} did not stop cleanly: {stop_s:.2f} s, processes left {alive_after}")
+    if errors:
+        fail(f"{label} raised: {errors[0]!r}")
+    if healthz[0] != 200 or healthz[1].get("alive") is not True or not (healthz[1].get("federation") or {}).get(
+            "healthy"):
+        fail(f"{label}: /healthz at the end: {healthz}")
+    for n, cycle in enumerate(cycles):
+        want = {"read_sweep": 5, "fill": 5, "blocksums": 1}
+        if not cycle["healthy"] or cycle["launches"] != want:
+            fail(f"{label} probe cycle {n}: healthy={cycle['healthy']}, launches {cycle['launches']} (want {want})")
+    return out
+
+
+def relay_phase(dev, name: str, power_limit: str, seed: int, child: UpstreamsChild, root: Upstream, *,
+                churn_steps: int, pace_s: float) -> dict:
+    """Phase 13: ``python -m k8s_watcher_tpu_torch production``'s
+    ``WatcherApp`` with ``relay.enabled`` (serve only: history, federation,
+    analytics, health and SLO off) and ``relay.upstream`` one of phase 12's
+    upstreams (``root``), beside its own small cluster and the probe.
+    ``RELAY_SUBSCRIBERS`` watch streams on the relay (a child process) fold
+    through ``churn_steps`` churn steps on the root to the root's
+    ``/serve/fleet``; the relay encodes no frame (its encode counters stay 0)
+    while the root's rise; a token minted at the root resumes at the relay
+    and one minted at the relay resumes at the root; ``/debug/relay``
+    reports depth 1; a relay restarted with ``backfill`` resumes a token
+    minted before its stop with deltas; the probe runs healthy with every
+    kernel launched; each stop takes under ``STOP_LIMIT_S``. Every check is
+    fatal. Returns the numbers, the kernel launches under ``"launches"``."""
+    from k8s_watcher_tpu_torch.app import WatcherApp
+    from k8s_watcher_tpu_torch.federate import FleetClient, ResyncRequired, model_from_objects
+    from k8s_watcher_tpu_torch.kernels import build
+
+    t_phase = time.monotonic()
+    cluster = federator_cluster(seed + 13)
+    stub = ClusterStub(cluster)
+    apiserver = serve_handler(type("StubApi", (_StubHandler,), {"stub": stub}))
+    receiver = serve_handler(_ReceiverHandler, lock=threading.Lock(), payloads=[], item_posts=0, batch_posts=0)
+    workdir = tempfile.TemporaryDirectory()
+    overlay = {"relay": {"enabled": True, "upstream": {"name": root.name, "url": root.url, "token": root.token}},
+               **{plane: {"enabled": False} for plane in ("history", "analytics", "health", "slo")}}
+    config = watcher_config(os.path.join(REPO, "config"), f"http://127.0.0.1:{receiver.server_address[1]}",
+                            f"http://127.0.0.1:{apiserver.server_address[1]}", workdir.name, probe_interval=1.0,
+                            overlay=overlay)
+    serve_port, status_port = config.serve.port, config.watcher.status_port
+    relay_url = f"http://127.0.0.1:{serve_port}"
+
+    def start():
+        app, runner, errors = app_runner(WatcherApp(config, device=dev))
+        cycles = count_cycles(app._probe_agent, build)
+        runner.start()
+        if not wait_until(lambda: errors or app.serve.server is not None and app.relay.health().get("synced"), 60):
+            fail(f"the relay did not sync with {root.name} within 60 s: {errors or app.relay.health()}")
+        return app, runner, errors, cycles
+
+    def stop(app, runner):
+        t0 = time.monotonic()
+        app.stop()
+        runner.join(60)
+        if runner.is_alive():
+            fail("the relay did not stop")
+        return time.monotonic() - t0
+
+    build.reset_launch_counts()
+    app, runner, errors, cycles = start()
+    encodes0 = child.status()["upstreams"][root.name]["encodes"]
+    # the streams ride the frame shape the relay's own upstream wire carries
+    # (production's relay: codec auto, fresh on), so it encodes nothing
+    subscribers = Subscribers(serve_port, STATUS_TOKEN, RELAY_SUBSCRIBERS, wire="msgpack")
+    t_churn = time.monotonic()
+    child.ask(cmd="churn", names=[root.name], steps=churn_steps, pace=pace_s)
+    wait_until(lambda: not child.status()["churn"][root.name]["alive"], 300, 0.2)
+    churn = child.status()
+    if churn["churn"][root.name]["failures"] or churn["churn"][root.name]["alive"]:
+        fail(f"the relay's root churn failed: {churn['churn'][root.name]}")
+    root_rv = churn["upstreams"][root.name]["rv"]
+    if not wait_until(lambda: app.serve.view.rv == root_rv, 60):
+        fail(f"the relay did not catch up with its root: {app.serve.view.rv} vs {root_rv}")
+    churn_s = time.monotonic() - t_churn
+    status, snap = http_get(root.port, "/serve/fleet", root.token)
+    model = model_from_objects(snap["objects"])
+    streams = subscribers.finish(snap["rv"])
+    relay_snap = http_get(serve_port, "/serve/fleet", STATUS_TOKEN)[1]
+    relay_encodes = app.relay.frame_encodes()
+    root_encodes = child.status()["upstreams"][root.name]["encodes"] - encodes0
+    debug_relay = http_get(status_port, "/debug/relay", STATUS_TOKEN)
+    serve_health = http_get(serve_port, "/serve/healthz")
+    # resume tokens cross the tier both ways
+    root_client = FleetClient(root.url, token=root.token, timeout=30.0)
+    relay_client = FleetClient(relay_url, token=STATUS_TOKEN, timeout=30.0)
+    tokens = {}
+    for minted_at, reader in (("root", relay_client), ("relay", root_client)):
+        minter = root_client if minted_at == "root" else relay_client
+        start_snap = minter.snapshot()
+        child.ask(cmd="step", name=root.name, steps=1)
+        try:
+            batch = reader.long_poll(start_snap.rv, view=start_snap.view, timeout=5.0)
+            tokens[minted_at] = {"rv": start_snap.rv, "to_rv": batch.to_rv, "items": len(batch.items),
+                                 "compacted": batch.compacted}
+        except ResyncRequired as exc:
+            tokens[minted_at] = {"rv": start_snap.rv, "error": str(exc)}
+    if not wait_until(lambda: sum(1 for c in cycles if c["end"] > t_churn) >= WATCHER_PROBE_CYCLES, 60):
+        fail(f"the relay: {sum(1 for c in cycles if c['end'] > t_churn)} probe cycles ran beside it")
+    relay_health = app.relay.health()
+    # a restart with backfill resumes a token minted before the stop
+    pre_stop = relay_client.snapshot()
+    stop_s = stop(app, runner)
+    child.ask(cmd="step", name=root.name, steps=4)
+    app2, runner2, errors2, cycles2 = start()
+    try:
+        resumed = relay_client.long_poll(pre_stop.rv, view=pre_stop.view, timeout=5.0)
+        backfill = {"rv": pre_stop.rv, "to_rv": resumed.to_rv, "items": len(resumed.items),
+                    "compacted": resumed.compacted, "relay_oldest_rv": app2.serve.view.oldest_rv}
+    except ResyncRequired as exc:
+        backfill = {"rv": pre_stop.rv, "error": str(exc)}
+    stop2_s = stop(app2, runner2)
+    launches = build.launch_counts()
+    stub.closing.set()
+    for server in (apiserver, receiver):
+        server.shutdown()
+        server.server_close()
+    workdir.cleanup()
+    out = {
+        "root": root.name, "subscribers": len(streams["streams"]), "churn_steps": churn_steps, "churn_s": churn_s,
+        "root_rv": snap["rv"],
+        "streams": {"deltas": sum(s["deltas"] for s in streams["streams"]),
+                    "gaps": sum(s["gaps"] for s in streams["streams"]),
+                    "dups": sum(s["dups"] for s in streams["streams"]),
+                    "gone": sum(s["gone"] for s in streams["streams"])},
+        "relay_frame_encodes": relay_encodes, "root_frame_encodes": root_encodes,
+        "relay_health": relay_health, "debug_relay": debug_relay[0], "tokens": tokens, "backfill": backfill,
+        "probe_cycles": [{k: c[k] for k in ("healthy", "duration_ms", "launches")} for c in cycles + cycles2],
+        "stop_s": [stop_s, stop2_s], "launches": launches, "phase_s": time.monotonic() - t_phase,
+        "device": name, "power_limit": power_limit,
+    }
+    for key in ("relay_hop_seconds", "watch_to_relay_seconds"):
+        summary = app.metrics.histogram(key).summary()
+        summary.pop("buckets_le_s", None)
+        out[key] = summary
+    print("relay: " + json.dumps(out))
+    if errors or errors2:
+        fail(f"the relay raised: {(errors or errors2)[0]!r}")
+    if max(stop_s, stop2_s) > STOP_LIMIT_S:
+        fail(f"the relay's stops took {stop_s:.2f} s and {stop2_s:.2f} s")
+    want = [snap["rv"], model_digest(model)]
+    bad = [s for s in streams["streams"] if s["at"] != want or s["gaps"] or s["dups"] or s["gone"]
+           or s["status"] != 200]
+    if bad:
+        fail(f"{len(bad)} of {RELAY_SUBSCRIBERS} relay streams did not fold to the root's snapshot: {bad[:3]}")
+    if relay_snap.get("view") != snap["view"] or model_from_objects(relay_snap["objects"]) != model:
+        fail("the relay's /serve/fleet differs from the root's")
+    if relay_encodes != 0 or root_encodes <= 0:
+        fail(f"frame encodes: relay {relay_encodes} (want 0), root {root_encodes} (want > 0)")
+    depth = ((debug_relay[1] or {}).get("relay") or {}).get("depth")
+    if debug_relay[0] != 200 or depth != 1 or (serve_health[1].get("relay") or {}).get("depth") != 1:
+        fail(f"/debug/relay: {debug_relay}, /serve/healthz: {serve_health}")
+    if any("error" in t or t["items"] < 1 or t["compacted"] for t in tokens.values()):
+        fail(f"resume tokens across the relay: {tokens}")
+    if "error" in backfill or backfill["items"] < 1:
+        fail(f"the restarted relay did not resume a pre-stop token with deltas: {backfill}")
+    # the restarted relay's cycles count launches from the phase's start, so
+    # only the first app's are held to the per-cycle launch counts
+    for n, cycle in enumerate(cycles):
+        want_launches = {"read_sweep": 5, "fill": 5, "blocksums": 1}
+        if not cycle["healthy"] or cycle["launches"] != want_launches:
+            fail(f"relay probe cycle {n}: healthy={cycle['healthy']}, launches {cycle['launches']}")
+    if not all(c["healthy"] for c in cycles2):
+        fail(f"the restarted relay's probe cycles: {cycles2}")
+    return out
+
+
+def federation_phases(dev, name: str, power_limit: str, seed: int, phase10: dict, *, jobsets: int = 16384,
+                      workers: int = 8, nodes: int = 16384, churn_steps=(1200, 600, 300),
+                      paces=(0.025, 0.003, 0.01)) -> dict:
+    """Phases 12 and 13 on one set of upstreams: ``FederatedFleet(seed)``
+    (``jobsets`` JobSets of ``workers`` workers over ``nodes`` nodes, phase
+    10's global size) in three ``UpstreamCluster`` s in an
+    ``UpstreamsChild`` process, as ``production``'s serve and history
+    settings build them; then ``federation_phase`` in process (trace joining
+    on), ``federation_phase`` sharded over two merge workers, and
+    ``relay_phase`` against the third upstream, with ``churn_steps`` and
+    ``paces`` in that order. Returns each run's kernel launches."""
+    workdir = tempfile.TemporaryDirectory()
+    child = UpstreamsChild(seed, workdir.name, jobsets=jobsets, workers=workers, nodes=nodes)
+    try:
+        print("federation upstreams: " + json.dumps({
+            "seed": seed, "clusters": [u.name for u in child.upstreams], "jobsets": jobsets,
+            "workers": jobsets * workers, "nodes": nodes, "upstreams": child.ready["upstreams"],
+            "build_s": child.ready["build_s"],
+        }))
+        names = [node for cluster in fleet_nodes(FED_UPSTREAMS, nodes).values() for node in cluster]
+        runs = {}
+        for label, processes, steps, pace in (("federator", 0, churn_steps[0], paces[0]),
+                                              ("sharded federator", 2, churn_steps[1], paces[1])):
+            runs[label] = federation_phase(dev, name, power_limit, seed, child, names,
+                                           processes=processes, churn_steps=steps, pace_s=pace,
+                                           phase10=phase10)["launches"]
+        runs["relay"] = relay_phase(dev, name, power_limit, seed, child, child.upstreams[2],
+                                    churn_steps=churn_steps[2], pace_s=paces[2])["launches"]
+    finally:
+        child.close()
+        workdir.cleanup()
+    return runs
 
 
 def main() -> int:
@@ -2705,8 +3653,8 @@ def main() -> int:
     # 10. analytics at the size of a federator's global fleet
     from k8s_watcher_tpu_torch.config import load_app_config
 
-    analytics_phase(torch, dev, name, power_limit, seed,
-                    load_app_config("production", os.path.join(REPO, "config"), env={}).analytics)
+    phase10 = analytics_phase(torch, dev, name, power_limit, seed,
+                              load_app_config("production", os.path.join(REPO, "config"), env={}).analytics)
 
     # 11. staging as shipped: two spawned reader processes on the native
     # prefilter, one killed and respawned, beside the probe
@@ -2714,6 +3662,13 @@ def main() -> int:
     for kernel in kernels:
         if staging_launches[kernel["name"]] <= 0:
             fail(f"kernel {kernel['name']} was not launched by the staging watcher's run")
+
+    # 12. the federator over three upstreams at the fleet's size, in process
+    # and then sharded over two merge workers; 13. a relay of one upstream
+    for run, launches in federation_phases(dev, name, power_limit, seed, phase10).items():
+        for kernel in kernels:
+            if launches[kernel["name"]] <= 0:
+                fail(f"kernel {kernel['name']} was not launched by the {run}'s run")
 
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()

@@ -20,20 +20,23 @@ up, liveness beating, no watch held, nothing sent) until it holds the
 Lease; ``tpu.node_watch.enabled`` adds the node plane's list+watch, whose
 readiness changes degrade the slices of their members; ``ingest.processes``
 moves the shard streams, their native prefilter and their checkpoints into
-supervised reader processes (``/debug/processes``).
-
-Planes the port does not carry yet are refused, never skipped: a config that
-enables one makes the constructor raise ``ConfigError`` naming the key.
+supervised reader processes (``/debug/processes``). ``federation.enabled``
+subscribes to N upstream serving planes and merges them into this view under
+``"<cluster>/<key>"`` keys (``federation.processes`` shards that fan-in over
+merge-worker processes; ``trace.federation.enabled`` joins their sampled
+journeys); ``relay.enabled`` mirrors one upstream's view and re-broadcasts
+its frames without encoding them again.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Optional
 
-from k8s_watcher_tpu_torch.config import AppConfig, ConfigError
+from k8s_watcher_tpu_torch.config import AppConfig
 from k8s_watcher_tpu_torch.metrics import MetricsRegistry
 from k8s_watcher_tpu_torch.notify.client import ClusterApiClient
 from k8s_watcher_tpu_torch.notify.dispatcher import Dispatcher, build_notifier
@@ -47,24 +50,6 @@ from k8s_watcher_tpu_torch.watch.sharded import ShardedWatchSource
 from k8s_watcher_tpu_torch.watch.source import WatchSource
 
 logger = logging.getLogger(__name__)
-
-#: (config key, whether the config enables it) for every plane of the JAX
-#: package's WatcherApp that the port does not carry yet
-UNPORTED_PLANES: Tuple[Tuple[str, Callable[[AppConfig], bool]], ...] = (
-    ("federation.enabled", lambda c: c.federation.enabled),
-    ("relay.enabled", lambda c: c.relay.enabled),
-)
-
-
-def refuse_unported_planes(config: AppConfig) -> None:
-    """Raise ``ConfigError`` naming the first enabled plane the port lacks."""
-    for key, enabled in UNPORTED_PLANES:
-        if enabled(config):
-            raise ConfigError(
-                f"config key '{key}': this plane is not yet ported to k8s_watcher_tpu_torch "
-                f"(ROADMAP.md, section A); switch it off to run the port's watcher"
-            )
-
 
 def build_source(
     config: AppConfig,
@@ -181,7 +166,6 @@ class WatcherApp:
         plane run: by default this rank's GPU, and they raise here when there
         is none; ``device="cpu"`` runs them on the CPU. ``expected_platform``
         goes to the probe agent (``"cpu"`` holds it to the CPU platform)."""
-        refuse_unported_planes(config)
         self.config = config
         self.metrics = metrics or MetricsRegistry()
         self.checkpoint = (
@@ -252,7 +236,79 @@ class WatcherApp:
                 history=self.history,
             )
             if self.tracer is not None:
+                # /debug/trace on the serve port too: a downstream federator
+                # knows only this URL and stitches local spans from it
                 self.serve.attach_trace(self.tracer.ring)
+        # the relay tier: this view mirrors an upstream serving plane (its
+        # instance id, its rv line, its frame bytes re-broadcast as they
+        # are). The local pipeline does not publish into a relayed view: its
+        # deltas would mint rvs on a foreign rv space
+        self.relay = None
+        if config.relay.enabled:
+            from k8s_watcher_tpu_torch.relay import RelayPlane
+
+            self.relay = RelayPlane(config.relay, self.serve.view, metrics=self.metrics)
+            self.serve.attach_relay(self.relay)
+        # the federation plane: N upstream serving planes, subscribed with
+        # durable resume tokens and merged into this view under
+        # (kind, "<cluster>/<key>") keys, so the serve and history planes
+        # republish the global fleet. Its subscribers start in run(), after
+        # the serve plane binds, and stop before the WAL closes
+        self.federation = None
+        # trace joining (trace.federation.enabled): the subscribers negotiate
+        # ?trace=1 and the collector joins each sampled journey's upstream
+        # spans with the serve_wire, federate_merge and global_serve hops, in
+        # the shared ring (/debug/trace?uid=, /debug/trace/diagnosis)
+        self.trace_collector = None
+        if config.federation.enabled:
+            from k8s_watcher_tpu_torch.federate import FederationPlane
+
+            if self.tracer is not None and config.trace.federation.enabled:
+                from k8s_watcher_tpu_torch.trace import ALL_STAGES, FleetTraceCollector
+
+                self.trace_collector = FleetTraceCollector(
+                    tracer=self.tracer,
+                    metrics=self.metrics,
+                    forward_spans=config.trace.federation.forward_spans,
+                    max_joined=config.trace.federation.max_joined,
+                    # the (stage x upstream) labels are bounded by the config
+                    max_label_sets=len(config.federation.upstreams) * len(ALL_STAGES) + 8,
+                )
+            # durable resume tokens only when the merged view is durable: a
+            # token resumed into an empty restarted view would serve a partial
+            # fleet. They sit beside the checkpoint, else under the WAL's
+            # directory, and are valid only after a clean recovery (a torn WAL
+            # tail can leave the view behind a token; the plane then clears
+            # them and re-snapshots)
+            token_dir = None
+            tokens_valid = False
+            if config.history.enabled:
+                recovered = self.history.recovered if self.history is not None else None
+                tokens_valid = recovered is not None and bool(recovered.instance) and recovered.clean
+                if config.state.checkpoint_path:
+                    token_dir = os.path.join(
+                        os.path.dirname(os.path.abspath(config.state.checkpoint_path)), "federation-tokens"
+                    )
+                elif config.history.dir:
+                    token_dir = os.path.join(config.history.dir, "federation-tokens")
+            self.federation = FederationPlane(
+                config.federation,
+                self.serve.view,
+                metrics=self.metrics,
+                token_dir=token_dir,
+                resume_tokens_valid=tokens_valid,
+                trace_collector=self.trace_collector,
+                # the sharded fan-in's worker anomaly traces land in the ring
+                trace_ring=self.tracer.ring if self.tracer is not None else None,
+                process_export=config.metrics.process_export,
+            )
+            if config.federation.processes > 0:
+                logger.info(
+                    "Federation fan-in sharded across %d merge worker process(es) "
+                    "(%d upstream(s); staleness owner: merge workers)",
+                    config.federation.processes,
+                    len(config.federation.upstreams),
+                )
         # the analytics plane: the view's columns, kernels on ``device``,
         # /serve/analytics; passive (refreshed per request), attached before
         # the serve plane starts
@@ -273,6 +329,7 @@ class WatcherApp:
                 config.health,
                 metrics=self.metrics,
                 view=self.serve.view if self.serve is not None else None,
+                federation=self.federation,
                 environment=config.environment,
             )
         # the SLO engine, last among the planes, so its first sample sees
@@ -306,7 +363,9 @@ class WatcherApp:
         # the dispatcher (pods reach it through the pipeline's publish hook,
         # which also sees the events the critical gate keeps from notifying)
         self._notify_sink = (
-            self.serve.wrap_sink(self.dispatcher.submit) if self.serve is not None else self.dispatcher.submit
+            self.serve.wrap_sink(self.dispatcher.submit)
+            if self.serve is not None and self.relay is None
+            else self.dispatcher.submit
         )
         self.source = source or build_source(
             config, self.checkpoint, self.liveness.beat, self.metrics, self.tracer
@@ -347,7 +406,7 @@ class WatcherApp:
             metrics=self.metrics,
             audit=self.audit,
             tracer=self.tracer,
-            view=self.serve.view if self.serve is not None else None,
+            view=self.serve.view if self.serve is not None and self.relay is None else None,
             resource_key=config.tpu.resource_key,
             topology_label=config.tpu.topology_label,
             accelerator_label=config.tpu.accelerator_label,
@@ -380,9 +439,18 @@ class WatcherApp:
     def run(self) -> None:
         """Blocking steady-state loop, until ``stop()`` or the ingest ends."""
         self.dispatcher.start()
+        if self.relay is not None:
+            # before the serve plane binds, so the first subscriber finds the
+            # mirrored view; the wait is bounded (a dark upstream degrades
+            # health instead of wedging the start)
+            self.relay.start()
+            self.relay.wait_synced(self.config.relay.sync_timeout_seconds)
         if self.serve is not None:
             # before the status server, so /healthz folds a started plane
             self.serve.start()
+        if self.federation is not None:
+            # after the serve plane (the merged view republishes through it)
+            self.federation.start()
         if self.health is not None:
             # ticks start now so peer baselines and trend anchors warm up;
             # the actuator arms in _start_health
@@ -400,8 +468,10 @@ class WatcherApp:
                 else None
             )
             stall_after = self.config.clusterapi.egress_stall_seconds
-            # the reader-process surface, only when the process tier is live
-            procs_live = callable(getattr(self.ingest, "process_report", None))
+            # the worker-process surface, only when a process tier is live
+            procs_live = callable(getattr(self.ingest, "process_report", None)) or (
+                self.federation is not None and self.federation.fanin is not None
+            )
             self.status_server = StatusServer(
                 self.metrics,
                 self.liveness,
@@ -414,6 +484,10 @@ class WatcherApp:
                 # ... and the serving plane: a dead serve thread or broadcast
                 # loop silently starves every subscriber
                 serve=self.serve.health if self.serve is not None else None,
+                federation=self.federation.health if self.federation is not None else None,
+                relay=self.relay.health if self.relay is not None else None,
+                trace_stitch=self.trace_collector.stitch if self.trace_collector is not None else None,
+                trace_diagnosis=self.trace_collector.diagnosis if self.trace_collector is not None else None,
                 freshness=self._freshness_snapshot if self.serve is not None else None,
                 slices=self.slice_tracker.debug_snapshot,
                 checkpoint=self.checkpoint.stats if self.checkpoint is not None else None,
@@ -432,11 +506,15 @@ class WatcherApp:
             routes = "/metrics, /healthz, /debug/slices" + (
                 ", /debug/events" if self.audit is not None else ""
             ) + (", /debug/trace" if self.tracer is not None else "") + (
+                ", /debug/trace/diagnosis" if self.trace_collector is not None else ""
+            ) + (
                 ", /debug/trend" if trend is not None else ""
             ) + (", /debug/probes" if agent is not None else "") + (
                 ", /debug/remediation" if remediation_state is not None else ""
             ) + (", /debug/checkpoint" if self.checkpoint is not None else "") + (
                 ", /debug/history" if self.history is not None else ""
+            ) + (", /debug/federation" if self.federation is not None else "") + (
+                ", /debug/relay" if self.relay is not None else ""
             ) + (", /debug/freshness" if self.serve is not None else "") + (
                 ", /debug/slo" if self.slo is not None else ""
             ) + (", /debug/health" if self.health is not None else "") + (
@@ -656,21 +734,31 @@ class WatcherApp:
                 self.checkpoint.put("known_pods", known, changed_keys=changed)
 
     def _freshness_snapshot(self) -> dict:
-        """The ``/debug/freshness`` body: the local view's watermark and the
-        watch-to-local-view histogram."""
+        """The ``/debug/freshness`` body: the local view's watermark, the
+        watch-to-local-view histogram and, on a federator, each upstream's
+        watermark and the cross-cluster propagation histograms."""
         out = {"local": self.serve.view.freshness()}
         local_hist = self.metrics.histogram("watch_to_local_view_seconds")
         if local_hist.count:
             out["local"]["watch_to_local_view_seconds"] = local_hist.summary()
+        if self.federation is not None:
+            out["federation"] = self.federation.freshness()
         return out
 
     def _process_reports(self) -> list:
-        """Supervision rows of the reader processes (``ingest.processes``)."""
+        """Supervision rows of every live process tier: the ingest readers
+        (``ingest.processes``) and the fan-in's merge workers
+        (``federation.processes``)."""
+        out = []
         report = getattr(self.ingest, "process_report", None)
-        return report() if callable(report) else []
+        if callable(report):
+            out.extend(report())
+        if self.federation is not None:
+            out.extend(self.federation.process_report())
+        return out
 
     def _processes_snapshot(self) -> dict:
-        """The ``/debug/processes`` body: each reader's supervision row with
+        """The ``/debug/processes`` body: each worker's supervision row with
         its hottest process-labelled counter series."""
         rows = self._process_reports()
         top = self.config.metrics.process_top_series
@@ -713,8 +801,14 @@ class WatcherApp:
         if self.slo is not None:
             self.slo.stop()
         if self.health is not None:
-            # before the serve plane: its tick reads the view
+            # before the federation and serve planes: its tick reads both
             self.health.stop()
+        if self.federation is not None:
+            # before the serve plane and the WAL: the subscribers produce
+            # deltas, and the WAL's final snapshot must follow their last one
+            self.federation.stop()
+        if self.relay is not None:
+            self.relay.stop()  # the relay's subscriber feeds the view too
         if self.serve is not None:
             self.serve.stop()
         joined = True

@@ -19,10 +19,11 @@ plane feeds it from the planes the watcher already runs:
   link-RTT medians become a graded peer signal (all nodes of one report are
   slice peers). Each report is consumed by one tick, so hysteresis counts
   reports for this source.
-- **freshness**: the JAX package reads per-upstream watermarks off its
-  federation plane here; the port carries no federation plane (its config
-  refuses one), so this source is not collected.
-- **trace** (``trace.py``): per-stage mean latency over the tick window
+- **freshness** (``federate/plane.py``, on a federator): each upstream's
+  watermark age and its oldest unpropagated delta, from
+  ``FederationPlane.freshness()``. Upstreams form one peer group, so one
+  lagging cluster stands out against the others.
+- **trace** (``trace/``): per-stage mean latency over the tick window
   (cumulative histogram differencing), trend-judged. Stage subjects surface
   pipeline pathology in /debug/health; they never reach the actuator.
 
@@ -44,6 +45,8 @@ logger = logging.getLogger(__name__)
 
 #: per-metric absolute z-denominator floors (see Observation.floor)
 PHASE_LATENCY_FLOOR_S = 0.25
+WATERMARK_FLOOR_S = 0.5
+UNPROPAGATED_FLOOR_S = 1.0
 LINK_RTT_FLOOR_MS = 0.05
 
 #: completed Pending->Running latencies remembered per node (median of
@@ -60,12 +63,14 @@ class HealthPlane:
         *,
         metrics=None,
         view=None,  # serve.FleetView (phase source)
+        federation=None,  # federate.FederationPlane (freshness source)
         sink=None,  # notification sink (TPU_HEALTH payloads)
         environment: str = "",
     ):
         self.config = config
         self.metrics = metrics
         self.view = view
+        self.federation = federation
         self.environment = environment
         self.detector = HealthDetector(
             suspect_z=config.suspect_z,
@@ -158,6 +163,8 @@ class HealthPlane:
         evidence: Dict[Tuple[str, str], List[str]] = {}
         if self.config.source_phase and self.view is not None:
             self._collect_phase(observations)
+        if self.config.source_freshness and self.federation is not None:
+            self._collect_freshness(observations)
         if self.config.source_probe:
             self._collect_probe(observations, evidence)
         if self.config.source_trace and self.metrics is not None:
@@ -242,6 +249,24 @@ class HealthPlane:
                 group=f"slice:{node_slice[node]}" if node in node_slice else "unsliced",
                 floor=PHASE_LATENCY_FLOOR_S, source="phase",
             ))
+
+    def _collect_freshness(self, observations: List[Observation]) -> None:
+        upstreams = (self.federation.freshness() or {}).get("upstreams") or {}
+        for name, u in upstreams.items():
+            age = u.get("watermark_age_seconds")
+            if age is None:
+                age = u.get("last_delta_age_seconds")
+            if age is not None:
+                observations.append(Observation(
+                    kind="upstream", name=name, metric="watermark_age_seconds", value=float(age),
+                    group="upstreams", floor=WATERMARK_FLOOR_S, source="freshness",
+                ))
+            unpropagated = u.get("oldest_unpropagated_seconds")
+            if unpropagated is not None:
+                observations.append(Observation(
+                    kind="upstream", name=name, metric="oldest_unpropagated_seconds", value=float(unpropagated),
+                    group="upstreams_backlog", floor=UNPROPAGATED_FLOOR_S, source="freshness",
+                ))
 
     def _collect_probe(
         self,

@@ -272,10 +272,17 @@ class _LoopWorker(threading.Thread):
             return
         self._needs_pull.clear()
         budget = self.loop.sub_buffer_bytes
+        instance = self.loop.view.instance
         for client in targets:
             if client.closing or client.buf_bytes >= budget:
                 # over budget: stop pulling — the cursor lags and the
                 # NEXT pull rides read-time latest-wins compaction
+                continue
+            if client.view_id != instance:
+                # a relay re-adopted its upstream under this stream: the old
+                # cursor means nothing in the new rv space, so end with GONE
+                self._queue_control(client, {"type": "GONE", "rv": client.sub.rv, "view": instance})
+                self._finish(client)
                 continue
             if client.sub.rv >= view_rv:
                 continue
@@ -308,6 +315,15 @@ class _LoopWorker(threading.Thread):
                     )
                 self._queue_frames(client, result.frames)
                 client.last_frame = time.monotonic()
+            elif result.compacted:
+                # a sparse relay journal: the cursor moved over a sanctioned
+                # hole with nothing to send. COMPACTED sanctions the range and
+                # the SYNC moves the resume token past it, or the next delta
+                # would read as a gap downstream
+                self._queue_control(
+                    client, {"type": "COMPACTED", "from_rv": result.from_rv, "to_rv": result.to_rv})
+                self._queue_control(client, {"type": "SYNC", "rv": client.sub.rv, "view": client.view_id})
+                client.last_frame = time.monotonic()
             self._flush(client)
 
     def _timers(self, now: float) -> None:
@@ -320,7 +336,15 @@ class _LoopWorker(threading.Thread):
             return
         self._last_timer_sweep = now
         next_due = float("inf")
+        instance = self.loop.view.instance
         for client in list(self._clients.values()):
+            if not client.closing and client.view_id != instance:
+                # an idle stream learns of a relay re-adopt here (the pump
+                # walks only streams with pending deltas)
+                self._queue_control(client, {"type": "GONE", "rv": client.sub.rv, "view": instance})
+                self._finish(client)
+                if client.fd not in self._clients:
+                    continue
             if client.closing:
                 if now >= client.hard_deadline:
                     # peer never drained its final bytes: tear down

@@ -462,6 +462,25 @@ class ColumnarStore:
         self._handle_gen = self._gen
         return self._handle
 
+    def federated_entries(self) -> List[Tuple[str, str, str]]:
+        """``(kind, global_key, cluster)`` for every federated object, off
+        the cluster column for pods and off the object for side entries (the
+        merge registry's reseed; no object is rebuilt)."""
+        self._flush()
+        out: List[Tuple[str, str, str]] = []
+        n = self._arr_len
+        cluster_col = self._cluster
+        names = self.clusters.names
+        for key, row in self._rows.items():
+            code = int(cluster_col[row]) if row < n else 0
+            if code > 0:
+                out.append((POD_KIND, key, names[code]))
+        for (kind, key), (_anchor, obj) in self._side.items():
+            cluster = obj.get("cluster")
+            if cluster:
+                out.append((kind, key, str(cluster)))
+        return out
+
     def resident_bytes(self) -> int:
         """O(1) resident estimate for the ``view_resident_bytes`` gauge."""
         arrays = self._phase.nbytes + self._ready.nbytes + self._node.nbytes + self._cluster.nbytes
@@ -499,8 +518,11 @@ class ColumnarStore:
             raise KeyError(map_key)
         return obj
 
+    def __setitem__(self, map_key, obj) -> None:
+        self.upsert(map_key[0], map_key[1], obj)
+
     def pop(self, map_key, default=None):
-        """O(1) removal without reconstructing the object."""
+        """O(1) removal without reconstructing the object (the relay's fold)."""
         existed = map_key in self
         self.delete(map_key[0], map_key[1])
         return True if existed and default is None else (default if not existed else True)
@@ -515,6 +537,9 @@ class ColumnarStore:
     def keys(self):
         for map_key, _obj in self.items():
             yield map_key
+
+    def __iter__(self):
+        return self.keys()
 
     def values(self):
         for _map_key, obj in self.items():

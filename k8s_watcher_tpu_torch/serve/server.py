@@ -379,9 +379,15 @@ class _ServeHandler(BaseHTTPRequestHandler):
 
         deadline = time.monotonic() + timeout
         last_frame = time.monotonic()
+        stream_view = self.view.instance
         try:
-            write_frames([{"type": "SYNC", "rv": sub.rv, "view": self.view.instance}])
+            write_frames([{"type": "SYNC", "rv": sub.rv, "view": stream_view}])
             while time.monotonic() < deadline:
+                if self.view.instance != stream_view:
+                    # a relay re-adopted its upstream mid-stream: end with
+                    # GONE rather than graft two rv lines together
+                    write_frames([{"type": "GONE", "rv": sub.rv, "view": self.view.instance}])
+                    break
                 result = sub.pull(timeout=min(0.5, max(0.0, deadline - time.monotonic())), limit=limit)
                 if result.status == GONE:
                     # fell behind the horizon while writing to a slow client
@@ -393,6 +399,12 @@ class _ServeHandler(BaseHTTPRequestHandler):
                         frames.append({"type": "COMPACTED", "from_rv": result.from_rv, "to_rv": result.to_rv})
                     frames.extend(d.to_wire(fresh=fresh, trace=traced) for d in result.deltas)
                     write_frames(frames)
+                    last_frame = time.monotonic()
+                elif result.compacted:
+                    # a sparse relay journal: sanction the skipped range and
+                    # move the resume token past it with a SYNC
+                    write_frames([{"type": "COMPACTED", "from_rv": result.from_rv, "to_rv": result.to_rv},
+                                  {"type": "SYNC", "rv": sub.rv, "view": self.view.instance}])
                     last_frame = time.monotonic()
                 elif time.monotonic() - last_frame >= SYNC_INTERVAL_SECONDS:
                     write_frames([{"type": "SYNC", "rv": sub.rv, "view": self.view.instance}])
@@ -510,10 +522,16 @@ class ServePlane:
         self._auth_token = auth_token
         self.analytics = None  # analytics.AnalyticsPlane, attached before start()
         self.trace_ring = None  # trace.TraceRing, attached before start()
+        self.relay = None  # relay.RelayPlane, attached before start()
 
     def attach_analytics(self, analytics) -> None:
         """Wire the analytics plane; call before ``start()``."""
         self.analytics = analytics
+
+    def attach_relay(self, relay) -> None:
+        """Wire the relay plane: its verdict and its ``depth`` (which a
+        downstream relay stamps its own from) fold into ``/serve/healthz``."""
+        self.relay = relay
 
     def attach_trace(self, ring) -> None:
         """Wire the tracing ring (``/debug/trace`` on the serve port); call
@@ -589,5 +607,13 @@ class ServePlane:
             history_health = self.history.health()
             body["history"] = history_health
             if server is not None and not history_health["healthy"]:
+                body["healthy"] = False
+        if self.relay is not None:
+            # depth and upstream connectivity. Only a dead subscriber thread
+            # (a local fault) flips the verdict; a dark upstream degrades
+            # this section alone, since restarting the relay cannot revive it
+            relay_health = self.relay.health()
+            body["relay"] = relay_health
+            if relay_health.get("started") and not relay_health.get("thread_alive", True):
                 body["healthy"] = False
         return body

@@ -159,7 +159,13 @@ def chunk_frame(obj: Mapping[str, Any], codec: str = CODEC_JSON) -> bytes:
     """One wire frame: the codec payload in HTTP chunked-transfer framing
     (``<hex len>\\r\\n<payload>\\r\\n``). Every frame of a watch stream is
     one: the per-delta frames and the SYNC/COMPACTED/GONE control frames."""
-    payload = frame_body(obj, codec)
+    return chunk_wrap(frame_body(obj, codec))
+
+
+def chunk_wrap(payload: bytes) -> bytes:
+    """Wrap already-encoded payload bytes in the per-frame chunked framing.
+    The relay's passthrough calls it directly: the upstream's payload gets a
+    length prefix and is never serialized again."""
     return b"%x\r\n" % len(payload) + payload + b"\r\n"
 
 
@@ -168,6 +174,28 @@ def frame_payload(frame: bytes) -> bytes:
     client applies)."""
     head, _, rest = frame.partition(b"\r\n")
     return rest[: int(head, 16)]
+
+
+_RV_MARK = b'"rv": '
+
+
+def splice_frame_rv(payload: bytes, rv: int) -> Optional[bytes]:
+    """``payload`` (one JSON frame line, before chunk framing) with its
+    frame-level ``rv`` number replaced by ``rv``: the only byte change the
+    sharded fan-in makes to a frame a merge worker forwarded. The first
+    ``"rv": `` of a delta line is the frame's own (the line opens with
+    ``type`` and then ``rv``). None when the shape is not recognized, so
+    the caller journals a hole to re-encode instead of a corrupt frame."""
+    i = payload.find(_RV_MARK)
+    if i < 0:
+        return None
+    j = k = i + len(_RV_MARK)
+    n = len(payload)
+    while k < n and payload[k] in b"-0123456789":
+        k += 1
+    if k == j or k >= n or payload[k] not in b",}":
+        return None
+    return b"%s%d%s" % (payload[:j], rv, payload[k:])
 
 
 class ReadResult(NamedTuple):
@@ -217,6 +245,10 @@ class FleetView:
         self._frames: Dict[str, List[Optional[bytes]]] = {variant: [] for variant in FRAME_VARIANTS}
         # (rv, body) per codec: built at most once per rv and codec
         self._snapshot_cache: Dict[str, Tuple[int, bytes]] = {}
+        # relay mode: reads resuming below this rv are flagged compacted,
+        # since the upstream skipped rvs of this journal (latest-wins on its
+        # side); 0 on every other view
+        self._relay_sparse_rv = 0
         # per-kind object tables, built at most once per rv
         self._tables_cache: Optional[Tuple[int, Dict[str, List[Dict[str, Any]]]]] = None
         # post-publish wakeups, called outside the lock (the broadcast loops)
@@ -273,6 +305,7 @@ class FleetView:
             self._tables_cache = None
             # tokens older than the preloaded tail get GONE
             self._oldest_rv = journal[0].rv - 1 if journal else rv
+            self._relay_sparse_rv = 0
             if self._rv_gauge is not None:
                 self._rv_gauge.set(self._rv)
 
@@ -292,6 +325,116 @@ class FleetView:
             rv = self._rv
             snap = self._objects.snapshot_parts(with_keys=True)
         return rv, {(kind, key): obj for kind, key, obj in iter_snapshot_objects(snap)}
+
+    # -- relay mode: the upstream's rv line, mirrored (relay/plane.py) ----
+
+    def adopt_relay(self, *, instance: str, rv: int, objects: Dict[Tuple[str, str], Dict[str, Any]]) -> None:
+        """Take over an upstream serving plane's state: its instance id, rv
+        and objects (the relay's snapshot reconcile). Unlike ``restore`` this
+        may happen while serving (the upstream restarted, or the relay fell
+        behind its horizon), so waiters are woken and the wakeup hooks fire:
+        a subscriber of the old rv space gets GONE/INVALID and re-snapshots
+        from this relay, not from the root. The journal starts empty;
+        backfill through ``publish_relayed`` lowers ``oldest_rv`` again."""
+        with self._cond:
+            self.instance = instance
+            self._rv = rv
+            if self.columnar:
+                self._objects.reseed(objects)
+            else:
+                self._objects = dict(objects)
+            self._delta_rvs = []
+            self._deltas = []
+            self._frames = {variant: [] for variant in FRAME_VARIANTS}
+            self._snapshot_cache = {}
+            self._tables_cache = None
+            self._relay_sparse_rv = 0
+            self._oldest_rv = rv
+            if self._rv_gauge is not None:
+                self._rv_gauge.set(rv)
+            self._cond.notify_all()
+        for fn in self._wakeups:
+            fn()
+
+    def publish_relayed(self, entries, *, variant: str = CODEC_JSON, fold_objects: bool = True) -> int:
+        """Journal upstream deltas as they are, at the upstream's rvs (the
+        relay's publish path). ``entries`` are ``(Delta, frame_or_None)``
+        pairs: the delta holds the decoded wire fields, ``frame`` the
+        upstream's payload already chunk-framed, stored into the ``variant``
+        array untouched, so ``serve_frame_encodes*`` stays 0 for relayed
+        deltas. Every other variant journals a hole that a read fills.
+
+        ``fold_objects=False`` is backfill: entries older than the adopted
+        snapshot extend the journal and lower ``oldest_rv`` without touching
+        the objects, which already reflect them.
+
+        A skip in the upstream's rvs (it compacted this relay's stream)
+        marks the journal sparse up to that rv; reads resuming below the
+        mark are flagged compacted, so a downstream gap check gets the same
+        sanction. Never handed to the WAL: a relay is a stateless edge and
+        the root owns durability. Returns the entries journaled."""
+        if not entries:
+            return 0
+        appended = 0
+        first_rv = None
+        with self._cond:
+            for delta, frame in entries:
+                rv = delta.rv
+                if self._delta_rvs:
+                    last = self._delta_rvs[-1]
+                    if rv <= last:
+                        continue  # already journaled by an earlier read
+                    if rv > last + 1:
+                        self._relay_sparse_rv = max(self._relay_sparse_rv, rv)
+                elif fold_objects and rv > self._rv + 1:
+                    # the first live entry after an adopt skips past the
+                    # snapshot's rv: the same sanctioned hole
+                    self._relay_sparse_rv = max(self._relay_sparse_rv, rv)
+                if fold_objects:
+                    map_key = (delta.kind, delta.key)
+                    if delta.type == DELETE:
+                        self._objects.pop(map_key, None)
+                    else:
+                        self._objects[map_key] = delta.object
+                self._delta_rvs.append(rv)
+                self._deltas.append(delta)
+                for v in FRAME_VARIANTS:
+                    self._frames[v].append(frame if v == variant else None)
+                if first_rv is None:
+                    first_rv = rv
+                appended += 1
+            if appended:
+                self._rv = max(self._rv, self._delta_rvs[-1])
+                # backfill lowers the horizon: tokens of the pre-adopt
+                # journal resume from memory again
+                self._oldest_rv = min(self._oldest_rv, first_rv - 1)
+                self._trim_locked()
+                if self._rv_gauge is not None:
+                    self._rv_gauge.set(self._rv)
+                self._cond.notify_all()
+        if appended:
+            if self._deltas_published is not None:
+                self._deltas_published.inc(appended)
+            for fn in self._wakeups:
+                fn()
+        return appended
+
+    def note_upstream_rv(self, rv: int) -> int:
+        """Take an upstream rv seen with no journal entry (a SYNC that
+        outran the deltas held, when the upstream compacted or paged this
+        stream): the journal goes sparse up to ``rv``, like a skip carried
+        by a delta. Returns the view's rv, changed or not."""
+        with self._cond:
+            if rv <= self._rv:
+                return self._rv
+            self._rv = rv
+            self._relay_sparse_rv = max(self._relay_sparse_rv, rv)
+            if self._rv_gauge is not None:
+                self._rv_gauge.set(self._rv)
+            self._cond.notify_all()
+        for fn in self._wakeups:
+            fn()
+        return rv
 
     # -- writing (pipeline thread + sink taps) ----------------------------
 
@@ -326,10 +469,13 @@ class FleetView:
         ts_wall: Optional[float] = None,
         pub_wall: float = 0.0,
         trace: Optional[Any] = None,
+        frame: Optional[bytes] = None,
     ) -> bool:
         """One delta under the lock. False for no-ops (identical upsert, delete
         of an absent key): no rv, no journal entry. ``encode=False`` journals
-        a hole in every frame array for the first read to fill."""
+        a hole in every frame array for the first read to fill; with a
+        forwarded JSON ``frame`` payload (the sharded fan-in), the plain JSON
+        slot gets that payload with this view's rv spliced in instead."""
         if self.columnar:
             if obj is None:
                 if not self._objects.delete(kind, key):
@@ -354,7 +500,14 @@ class FleetView:
         delta = Delta(self._rv, kind, key, delta_type, obj, now, ts_wall, pub_wall, trace)
         self._delta_rvs.append(self._rv)
         self._deltas.append(delta)
-        self._frames[CODEC_JSON].append(self._encode_locked(delta) if encode else None)
+        if encode:
+            json_frame: Optional[bytes] = self._encode_locked(delta)
+        elif frame is not None:
+            spliced = splice_frame_rv(frame, self._rv)
+            json_frame = chunk_wrap(spliced) if spliced is not None else None
+        else:
+            json_frame = None
+        self._frames[CODEC_JSON].append(json_frame)
         for variant in FRAME_VARIANTS[1:]:
             self._frames[variant].append(None)
         return True
@@ -414,9 +567,11 @@ class FleetView:
         """Fold a batch of ``(kind, key, obj_or_None)`` mutations under one
         lock hold, with one WAL hand-off and one wakeup. A fourth element
         carries the origin stamp ``ts_wall``, a fifth the journey's compact
-        ``trace`` dict (the ``?trace=1`` field, forwarded as it is). Frames
-        are journaled as holes that the first read in each variant fills.
-        Returns the deltas minted."""
+        ``trace`` dict (the ``?trace=1`` field, forwarded as it is), a sixth
+        the JSON frame payload a fan-in merge worker forwarded (the plain
+        JSON slot is that payload with this view's rv spliced in). Other
+        frames are journaled as holes that the first read in each variant
+        fills. Returns the deltas minted."""
         now = time.monotonic()
         wall = time.time()
         changed = 0
@@ -424,8 +579,9 @@ class FleetView:
             for item in items:
                 ts = item[3] if len(item) > 3 and item[3] is not None else wall
                 trace = item[4] if len(item) > 4 else None
+                frame = item[5] if len(item) > 5 else None
                 if self._apply_locked(item[0], item[1], item[2], now, encode=False, ts_wall=ts, pub_wall=wall,
-                                      trace=trace):
+                                      trace=trace, frame=frame):
                     changed += 1
             if changed:
                 self._published_locked(changed)
@@ -621,6 +777,20 @@ class FleetView:
         with self._cond:
             return self._rv, self._objects.pod_handle()
 
+    def federated_keys(self) -> List[Tuple[str, str, str]]:
+        """``(kind, global_key, cluster)`` for every federated object: the
+        merge registry's reseed, answered off the cluster column on the
+        columnar core (no million-pod rebuild); the dict core walks."""
+        with self._cond:
+            if self.columnar:
+                return self._objects.federated_entries()
+            entries = []
+            for (kind, key), obj in self._objects.items():
+                cluster = obj.get("cluster") if isinstance(obj, dict) else None
+                if cluster:
+                    entries.append((kind, key, str(cluster)))
+            return entries
+
     def freshness(self) -> Dict[str, Any]:
         """The local view's freshness watermark (``/debug/freshness``): the
         age of the newest published delta by the local publish stamp and by
@@ -692,7 +862,10 @@ class FleetView:
         with self._cond:
             master = self._frames[variant]
             rvs = self._delta_rvs
+            if not rvs:
+                return  # a relay re-adopt emptied the journal meanwhile
             for frame_rv, frame in encoded:
+                # found by rv, not by offset: a relay journal may be sparse
                 pos = bisect_left(rvs, frame_rv)
                 if pos < len(master) and rvs[pos] == frame_rv and master[pos] is None:
                     master[pos] = frame
@@ -724,8 +897,16 @@ class FleetView:
             deltas = self._deltas[idx:]
             if want_frames:
                 frames = self._frames[variant][idx:]
+            sparse_rv = self._relay_sparse_rv
+        if not deltas:
+            # a sparse relay journal only (note_upstream_rv moved rv past the
+            # entries held): an empty batch to to_rv, sanctioned by the mark
+            return (OK, rv, to_rv, rv < sparse_rv, [], [])
         oldest_pending_t = deltas[0].t
-        compacted = False
+        # a relay journal may be sparse below the mark (the upstream
+        # compacted this stream): resuming there is flagged compacted, so a
+        # downstream gap check sees the skips sanctioned
+        compacted = rv < sparse_rv
         if pending > max_deltas:
             # latest-wins per key: keep each key's last index; sorting the
             # indices keeps rv order and deltas/frames parallel

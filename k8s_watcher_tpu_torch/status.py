@@ -188,6 +188,14 @@ class _StatusHandler(BaseHTTPRequestHandler):
     # /healthz body (stale stats degrade it, never liveness: the supervisor
     # already respawns a dead reader)
     processes_fold = None
+    # Callable[[str, int], list]: the federator's joined journeys of one uid,
+    # added to a /debug/trace?uid= answer
+    trace_stitch = None
+    trace_diagnosis = None  # Callable[[], dict]: per-upstream slowest-stage report
+    # Callable[[], dict]: the federation plane's verdict, folded into the
+    # /healthz body (a stale upstream degrades it, never liveness)
+    federation = None
+    relay = None  # Callable[[], dict]: the relay plane's detail
     auth_token: Optional[str] = None
 
     def log_message(self, *a):
@@ -228,6 +236,7 @@ class _StatusHandler(BaseHTTPRequestHandler):
             watch_alive = self.liveness.alive()
             egress = self.egress() if self.egress is not None else None
             serve = self.serve() if self.serve is not None else None
+            federation = self.federation() if self.federation is not None else None
             # a watcher whose egress workers are all dead, whose lane is
             # wedged past the stall threshold, or whose serving plane stopped
             # answering its subscribers is as blind as one that lost its
@@ -246,6 +255,10 @@ class _StatusHandler(BaseHTTPRequestHandler):
                 body["egress"] = egress
             if serve is not None:
                 body["serve"] = serve
+            if federation is not None:
+                # folded only: a dark upstream is not this process's fault,
+                # and restarting the federator cannot revive it
+                body["federation"] = federation
             if self.slo_health is not None:
                 body["slo"] = self.slo_health()
             if self.node_health_fold is not None:
@@ -264,7 +277,16 @@ class _StatusHandler(BaseHTTPRequestHandler):
                 return
             self._json(200, {"events": self.audit.snapshot(n, uid=params.get("uid")), "ring_size": len(self.audit)})
         elif parsed.path == "/debug/trace":
-            self._json(*trace_ring_response(self.trace, params))
+            status, body = trace_ring_response(self.trace, params)
+            if status == 200 and params.get("uid") and self.trace_stitch is not None:
+                body["stitched"] = self.trace_stitch(params["uid"], n=int(params.get("n", "50")))
+            self._json(status, body)
+        elif parsed.path == "/debug/trace/diagnosis":
+            if self.trace_diagnosis is None:
+                self._json(404, {"error": "fleet trace diagnosis not wired "
+                                          "(trace.federation.enabled + federation.enabled)"})
+                return
+            self._json(200, {"diagnosis": self.trace_diagnosis()})
         elif parsed.path == "/debug/slices":
             if self.slices is None:
                 self._json(404, {"error": "slice tracking not wired"})
@@ -309,6 +331,16 @@ class _StatusHandler(BaseHTTPRequestHandler):
                 self._json(404, {"error": "history plane not enabled (history.enabled)"})
                 return
             self._json(200, {"history": self.history()})
+        elif parsed.path == "/debug/federation":
+            if self.federation is None:
+                self._json(404, {"error": "federation plane not enabled (federation.enabled)"})
+                return
+            self._json(200, {"federation": self.federation()})
+        elif parsed.path == "/debug/relay":
+            if self.relay is None:
+                self._json(404, {"error": "relay plane not enabled (relay.enabled)"})
+                return
+            self._json(200, {"relay": self.relay()})
         elif parsed.path == "/debug/slo":
             if self.slo is None:
                 self._json(404, {"error": "SLO engine not enabled (slo.enabled)"})
@@ -321,7 +353,7 @@ class _StatusHandler(BaseHTTPRequestHandler):
             self._json(200, {"health": self.node_health()})
         elif parsed.path == "/debug/processes":
             if self.processes is None:
-                self._json(404, {"error": "no worker processes (ingest.processes: 0)"})
+                self._json(404, {"error": "no worker processes (ingest.processes / federation.processes: 0)"})
                 return
             self._json(200, {"processes": self.processes()})
         else:
@@ -355,6 +387,10 @@ class StatusServer:
         node_health_fold: Optional[Callable[[], dict]] = None,
         processes: Optional[Callable[[], dict]] = None,
         processes_fold: Optional[Callable[[], dict]] = None,
+        trace_stitch: Optional[Callable[..., list]] = None,
+        trace_diagnosis: Optional[Callable[[], dict]] = None,
+        federation: Optional[Callable[[], dict]] = None,
+        relay: Optional[Callable[[], dict]] = None,
         auth_token: Optional[str] = None,
     ):
         handler = type(
@@ -367,6 +403,10 @@ class StatusServer:
                 "trace": trace,
                 "egress": staticmethod(egress) if egress else None,
                 "serve": staticmethod(serve) if serve else None,
+                "trace_stitch": staticmethod(trace_stitch) if trace_stitch else None,
+                "trace_diagnosis": staticmethod(trace_diagnosis) if trace_diagnosis else None,
+                "federation": staticmethod(federation) if federation else None,
+                "relay": staticmethod(relay) if relay else None,
                 "freshness": staticmethod(freshness) if freshness else None,
                 "slices": staticmethod(slices) if slices else None,
                 "checkpoint": staticmethod(checkpoint) if checkpoint else None,

@@ -139,6 +139,7 @@ class Trace:
         "namespace",
         "event_type",
         "kind",
+        "cluster",
         "shard",
         "lane",
         "sampled_by",
@@ -172,6 +173,7 @@ class Trace:
         self.namespace = namespace
         self.event_type = event_type
         self.kind = "pod"
+        self.cluster: Optional[str] = None  # the origin cluster of a joined trace
         self.shard = shard
         self.lane: Optional[int] = None
         self.sampled_by = sampled_by  # "head" | "anomaly"
@@ -239,6 +241,9 @@ class Trace:
             "slowest_stage": self.slowest_stage(),
             "spans": spans,
         }
+        if self.cluster is not None:
+            # joined cross-cluster journeys only; a local entry keeps its shape
+            out["cluster"] = self.cluster
         if self.process is not None:
             # only traces imported over the process pool's stats frame
             # carry their origin worker; local entries keep their shape

@@ -52,8 +52,9 @@ from k8s_watcher_tpu.config.loader import load_config as ref_load_config
 from k8s_watcher_tpu.federate.client import FleetClient, ResumeLoop, model_from_objects
 from k8s_watcher_tpu.k8s.mock_server import MockApiServer, MockCluster
 from k8s_watcher_tpu.state.checkpoint import CheckpointStore as RefStore
-from k8s_watcher_tpu_torch.app import UNPORTED_PLANES, WatcherApp
-from k8s_watcher_tpu_torch.config import ConfigError, load_app_config
+from k8s_watcher_tpu_torch.app import WatcherApp
+from k8s_watcher_tpu_torch.config import AppConfig, ConfigError, deep_merge, load_app_config, load_raw_config
+from k8s_watcher_tpu_torch.federate import merged_equals_union
 from k8s_watcher_tpu_torch.state.checkpoint import CheckpointStore
 from k8s_watcher_tpu_torch.watch.fake import FakeWatchSource
 
@@ -397,20 +398,20 @@ def test_probe_without_a_gpu_is_refused_at_construction(tmp_path):
         WatcherApp(config, notifier=Recorder(), source=FakeWatchSource([]))
 
 
-@pytest.mark.parametrize("key", [key for key, _ in UNPORTED_PLANES])
-def test_unported_plane_is_refused(tmp_path, key):
-    config = make_config("port", "production", "http://127.0.0.1:1", tmp_path)
-    section, _, field = key.rpartition(".")
-    config = dataclasses.replace(config, **{section: dataclasses.replace(getattr(config, section), enabled=True)})
-    with pytest.raises(ConfigError, match=f"config key '{key}'.*not yet ported"):
-        WatcherApp(config, notifier=Recorder())
-
-
-def test_only_federation_and_relay_are_refused():
-    assert [key for key, _ in UNPORTED_PLANES] == ["federation.enabled", "relay.enabled"]
-    for environment in ("development", "staging", "production"):
-        config = load_app_config(environment, CONFIG_DIR, env={})
-        assert not any(enabled(config) for _, enabled in UNPORTED_PLANES), environment
+@pytest.mark.parametrize("overlay, message", [
+    ({"relay": {"enabled": True, "upstream": {"url": "http://127.0.0.1:1"}},
+      "federation": {"enabled": True, "upstreams": [{"name": "c0", "url": "http://127.0.0.1:1"}]}},
+     "'relay.enabled': conflicts with federation.enabled"),
+    ({"relay": {"enabled": True, "upstream": {"url": "http://127.0.0.1:1"}}},
+     "'relay.enabled': conflicts with history.enabled"),
+])
+def test_relay_excludes_federation_and_history(overlay, message):
+    """A relay mirrors its upstream's rv line: the schema refuses it beside a
+    federation plane (which mints local rvs) or a history WAL (durability
+    belongs to the root), in ``production`` as shipped."""
+    raw = load_raw_config("production", CONFIG_DIR, env={})
+    with pytest.raises(ConfigError, match=message):
+        AppConfig.from_raw(deep_merge(raw, overlay), "production")
 
 
 def test_analytics_without_a_gpu_is_refused_at_construction(tmp_path):
@@ -587,10 +588,11 @@ def tpu_cluster():
     return mock
 
 
-def shipped_config(environment, server_url, workdir, **watcher_kw):
+def shipped_config(environment, server_url, workdir, overlay=None, **watcher_kw):
     """``environment`` as shipped, every plane on, pointed at the mock
     apiserver through a kubeconfig, with free ports, a small probe and the
-    state under ``workdir``."""
+    state under ``workdir``; ``overlay`` is merged over the shipped files
+    before the schema reads them."""
     workdir.mkdir(parents=True, exist_ok=True)
     kubeconfig = workdir / "kubeconfig.json"
     kubeconfig.write_text(json.dumps({
@@ -599,9 +601,10 @@ def shipped_config(environment, server_url, workdir, **watcher_kw):
         "contexts": [{"name": "m", "context": {"cluster": "m", "user": "m"}}],
         "users": [{"name": "m", "user": {"token": "t"}}],
     }))
-    config = load_app_config(environment, CONFIG_DIR, env={
+    raw = load_raw_config(environment, CONFIG_DIR, env={
         "WATCHER_STATUS_TOKEN": TOKEN, "WATCHER_CHECKPOINT_PATH": str(workdir / "ck.json"),
         "WATCHER_HISTORY_DIR": str(workdir / "history")})
+    config = AppConfig.from_raw(deep_merge(raw, overlay or {}), environment)
     return dataclasses.replace(
         config,
         kubernetes=dataclasses.replace(config.kubernetes, use_incluster_config=False, config_file=str(kubeconfig),
@@ -675,6 +678,80 @@ def test_shipped_environment_runs_on_the_cpu(tmp_path, environment):
     else:
         assert processes[0] == 404 and "processes" not in healthz[1]
         assert lease["spec"]["holderIdentity"] and lease_after["spec"]["holderIdentity"] == ""
+
+
+UPSTREAM_TOKEN = "upstream-token"
+
+
+def _upstream(pods=6):
+    """A port serving plane on 127.0.0.1 over a view of ``pods`` pods and
+    one slice, behind a bearer token: the upstream a federator or a relay
+    subscribes to."""
+    from k8s_watcher_tpu_torch.serve import FleetView, ServeServer, SubscriptionHub
+
+    view = FleetView(compact_horizon=1024)
+    view.apply_batch([("pod", f"uid-{i}", {"kind": "pod", "key": f"uid-{i}", "name": f"w-{i}",
+                                           "namespace": "default", "phase": "Running", "ready": True,
+                                           "node": f"gpu-{i % 2}"}) for i in range(pods)]
+                     + [("slice", "default/train", {"kind": "slice", "key": "default/train", "phase": "Ready"})])
+    hub = SubscriptionHub(view)
+    server = ServeServer(view, hub, host="127.0.0.1", port=0, auth_token=UPSTREAM_TOKEN).start()
+    return view, server
+
+
+@pytest.mark.parametrize("plane", ["federation", "relay"])
+def test_federator_and_relay_run_on_the_cpu(tmp_path, plane):
+    """``production`` with ``federation.enabled`` (one upstream, trace joining
+    on) and ``production`` with ``relay.enabled`` (serve only: history,
+    analytics, health and SLO off), each against a local upstream, with
+    ``--cpu``: the federator's ``/serve/fleet`` holds the upstream's objects
+    under ``"c0/<key>"`` and its routes answer; the relay's snapshot is the
+    upstream's, on the upstream's rv line. Then a prompt stop."""
+    view, upstream = _upstream()
+    url = f"http://127.0.0.1:{upstream.port}"
+    if plane == "federation":
+        overlay = {"federation": {"enabled": True, "upstreams": [{"name": "c0", "url": url,
+                                                                   "token": UPSTREAM_TOKEN}]},
+                   "trace": {"federation": {"enabled": True}}}
+    else:
+        overlay = {"relay": {"enabled": True, "upstream": {"name": "root", "url": url, "token": UPSTREAM_TOKEN}},
+                   **{name: {"enabled": False} for name in ("history", "analytics", "health", "slo")}}
+    mock = tpu_cluster()
+    server = FastMockApiServer(mock).start()
+    try:
+        config = shipped_config("production", server.url, tmp_path, overlay=overlay)
+        app = WatcherApp(config, notifier=Recorder(), device="cpu", expected_platform="cpu")
+        thread = threading.Thread(target=app.run, daemon=True)
+        thread.start()
+        assert _wait(lambda: app.serve.server is not None)
+        upstream_snap = _get(upstream.port, "/serve/fleet", UPSTREAM_TOKEN)[1]
+
+        def fleet():
+            return _get(app.serve.port, "/serve/fleet", TOKEN)[1]
+
+        if plane == "federation":
+            assert _wait(lambda: merged_equals_union(fleet()["objects"], {"c0": upstream_snap["objects"]}))
+            routes = {r: _get(config.watcher.status_port, r, TOKEN)
+                      for r in ("/healthz", "/debug/federation", "/debug/trace/diagnosis", "/debug/relay")}
+            assert routes["/healthz"][0] == 200 and routes["/healthz"][1]["federation"]["healthy"] is True
+            assert routes["/debug/federation"][1]["federation"]["upstreams"]["c0"]["stale"] is False
+            assert routes["/debug/trace/diagnosis"][0] == 200 and routes["/debug/relay"][0] == 404
+            assert os.path.isdir(os.path.join(os.path.dirname(config.state.checkpoint_path), "federation-tokens"))
+        else:
+            assert _wait(lambda: fleet()["view"] == upstream_snap["view"])
+            assert sorted(map(json.dumps, fleet()["objects"])) == sorted(map(json.dumps, upstream_snap["objects"]))
+            assert fleet()["rv"] == upstream_snap["rv"] == view.rv
+            relay = _get(config.watcher.status_port, "/debug/relay", TOKEN)
+            assert relay[0] == 200 and relay[1]["relay"]["depth"] == 1
+            assert _get(app.serve.port, "/serve/healthz")[1]["relay"]["depth"] == 1
+        t0 = time.monotonic()
+        app.stop()
+        thread.join(WAIT_S)
+        stop_s = time.monotonic() - t0
+    finally:
+        server.stop()
+        upstream.stop()
+    assert not thread.is_alive() and stop_s < 10.0
 
 
 def test_standby_holds_no_watch_and_takes_over(tmp_path):

@@ -1,9 +1,8 @@
 """The port's health plane held against the JAX package's.
 
 The JAX package's ``tests/test_health.py`` runs again through the port
-(``test_torch_replay``), less ``TestFreshnessCollector``: the freshness
-source reads the federation plane, which the port does not carry yet
-(``ROADMAP.md`` section C). Then, on inputs made from a numpy seed:
+(``test_torch_replay``), the freshness source over a federation plane
+included. Then, on inputs made from a numpy seed:
 
 - the same observation stream (peer groups, trend-judged stages and
   upstreams, direct evidence) gives the same tick summaries, snapshots,
@@ -46,11 +45,7 @@ _REWRITES = [
     # the port's status server binds every interface and takes no host
     ('self.liveness, host="127.0.0.1"', "self.liveness"),
 ]
-globals().update(replayed_tests(
-    replay("test_health.py", rewrites=_REWRITES),
-    # the freshness source reads the federation plane
-    leave_out=("TestFreshnessCollector",),
-))
+globals().update(replayed_tests(replay("test_health.py", rewrites=_REWRITES)))
 
 PACKAGES = {
     "ref": (RefDetector, RefObservation, RefRegistry, RefPlane, RefHealthConfig, ref_synthetic_link_report, RefView),

@@ -141,3 +141,32 @@ def test_the_wal_codec_is_named():
     """``codec()`` names what the records are: msgpack maps, or JSON text."""
     record = encode_record({"t": "open", "wall": 1.0})
     assert codec() == ("json" if record.startswith(b"{") else "msgpack")
+
+
+@pytest.mark.parametrize("pkg", ["ref", "port"])
+def test_a_snapshot_past_the_segment_cap_rotates_on_every_drain(tmp_path, pkg):
+    """Both packages rotate once a segment's bytes, its opening snapshot's
+    included, reach ``segment_max_bytes``: when the snapshot alone outgrows
+    the cap, every writer drain opens a new segment with a full snapshot.
+    A federator's global view outgrows production's 16 MiB this way, so
+    ``chip_smoke.py``'s phase 12 gives the federator a larger cap
+    (``ROADMAP.md`` section C)."""
+    store_cls, view_cls = (RefStore, RefView) if pkg == "ref" else (HistoryStore, FleetView)
+    store = store_cls(tmp_path / pkg, fsync="never", segment_max_bytes=4096, retain_segments=64)
+    store.recover()
+    view = view_cls()
+    view.instance = INSTANCE
+    store.open(view.instance)
+    view.attach_history(store)
+    view.apply_batch([step for step in delta_stream(3, n=400) if step[2] is not None])
+    assert store.flush(10.0)
+    view.apply("pod", "ns/p-0", {"kind": "pod", "key": "ns/p-0", "seq": -1})
+    assert store.flush(10.0)
+    before = store.stats()["segments"]
+    assert before[-1]["records"] <= 2 and before[-1]["bytes"] > 4096  # a snapshot past the cap opens it
+    for i in range(8):
+        view.apply("pod", "ns/p-0", {"kind": "pod", "key": "ns/p-0", "seq": i})
+        assert store.flush(10.0)
+    after = store.stats()["segments"]
+    store.close()
+    assert len(after) - len(before) == 8

@@ -16,7 +16,8 @@ it must notify, answer ``/healthz`` (with the health and SLO folds),
 within 10 s of SIGINT. ``staging --cpu`` and ``production --cpu`` run the
 same way against a mock apiserver that serves Leases and nodes, with no plane
 switched off. A spawned ingest reader process, after the imports a
-production reader makes, holds neither torch nor jax.
+production reader makes, holds neither torch nor jax, and neither does a
+spawned federation merge worker.
 """
 
 import json
@@ -81,7 +82,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "k8s.leader", "nodes", "nodes.tracker", "nodes.watcher", "native.build",
                    "parallel.procpool", "watch.procpool",
                    "analytics", "analytics.encode", "analytics.backend", "analytics.kernels",
-                   "analytics.whatif", "analytics.plane"):
+                   "analytics.whatif", "analytics.plane", "trace.trace", "trace.federation",
+                   "federate", "federate.client", "federate.merge", "federate.plane", "federate.fanin",
+                   "relay", "relay.plane"):
         assert f"k8s_watcher_tpu_torch.{module}" in result["modules"], module
 
 
@@ -259,6 +262,38 @@ def test_spawned_reader_imports_no_torch():
     assert [e.name for e in got] == ["modules"]
     assert json.loads(got[0].pod["metadata"]["annotations"]["loaded"]) == []
     assert source.worker_stats()["hellos"][0]["pid"] != os.getpid()
+
+
+def test_spawned_merge_worker_imports_no_torch(tmp_path):
+    """A fan-in merge worker (``federation.processes``) is spawned, folds an
+    upstream's snapshot and drains on SIGTERM; by the time it built its
+    client it held neither torch nor jax (it never touches the card)."""
+    from k8s_watcher_tpu_torch.config import FederationConfig
+    from k8s_watcher_tpu_torch.federate.fanin import FaninEndpoint, fanin_plans
+    from k8s_watcher_tpu_torch.serve import FleetView, ServeServer, SubscriptionHub
+    from test_torch_proc_factories import fanin_modules_factory
+
+    view = FleetView()
+    view.apply_batch([("pod", f"uid-{i}", {"kind": "pod", "key": f"uid-{i}", "phase": "Running"}) for i in range(5)])
+    server = ServeServer(view, SubscriptionHub(view), host="127.0.0.1", port=0).start()
+    try:
+        config = FederationConfig.from_raw({"enabled": True, "processes": 1, "upstreams": [
+            {"name": "c0", "url": f"http://127.0.0.1:{server.port}"}]})
+        (plan,) = fanin_plans(config, str(tmp_path))
+        plan.client_factory = fanin_modules_factory
+        endpoint = FaninEndpoint(plan)
+        frames = endpoint.frames()
+        first = next(frames)
+        endpoint.stop()
+        rest = []
+        drain = threading.Thread(target=lambda: rest.extend(frames), daemon=True)
+        drain.start()
+        drain.join(30)
+    finally:
+        server.stop()
+    assert not drain.is_alive() and endpoint.last_hello["pid"] != os.getpid()
+    assert first["c"] == "c0" and first["r"] == 1 and len(first["b"]) == 5
+    assert json.loads((tmp_path / "modules.json").read_text()) == []
 
 
 def _shipped_overlay(tmp_path, environment, receiver_port, apiserver_url):

@@ -145,3 +145,19 @@ def modules_factory(plan):
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "jaxlib", "k8s_watcher_tpu"))
     pod = build_pod("modules", uid="uid-modules", tpu_chips=4, annotations={"loaded": json.dumps(loaded)})
     return [FakeWatchSource([WatchEvent(type="ADDED", pod=pod, resource_version="1")])]
+
+
+def fanin_modules_factory(plan, upstream):
+    """A merge worker's client factory: the worker has imported what it
+    runs on (the fan-in module, its registry and tracer) by the time it
+    builds a client, so the heavy modules loaded in this child are listed
+    into ``modules.json`` under the plan's token directory; then the
+    client a production worker builds (JSON pinned, stamps on)."""
+    import sys
+
+    from k8s_watcher_tpu_torch.federate.client import CODEC_JSON, FleetClient
+
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "jaxlib", "k8s_watcher_tpu"))
+    with open(os.path.join(plan.token_dir, "modules.json"), "w") as fh:
+        json.dump(loaded, fh)
+    return FleetClient(upstream.url, token=upstream.token, timeout=5.0, codec=CODEC_JSON, fresh=True)

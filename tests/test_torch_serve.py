@@ -1,8 +1,7 @@
 """The port's serving plane held against the JAX package's.
 
 The JAX package's ``tests/test_serve.py`` and ``tests/test_columnar_view.py``
-run again through the port (``test_torch_replay``), less the test of the
-federation merge, which the port does not carry yet (``ROADMAP.md`` section C). Then the same seeded churn goes into both
+run again through the port whole (``test_torch_replay``). Then the same seeded churn goes into both
 packages' ``FleetView`` (the columnar core and the dict core) and through both
 pipelines' publish hook: the snapshot bodies and the wire frames must be
 byte-equal in both codecs. Last, the JAX package's ``FleetClient`` and
@@ -37,15 +36,9 @@ _serve = replay("test_serve.py",
                 rewrites=_SCHEMA + [("SchemaError, ServeConfig", "ConfigError as SchemaError, ServeConfig")])
 serve_http = _serve.serve_http  # the replayed HTTP tests' fixture
 globals().update(replayed_tests(_serve))
-globals().update(replayed_tests(
-    replay("test_columnar_view.py", rewrites=_SCHEMA + [
-        ("    SchemaError,\n", "    ConfigError as SchemaError,\n"),
-        ("from k8s_watcher_tpu.federate.merge import GlobalMerge\n", ""),
-    ]),
-    # its phases 4 and 5 restore() a WAL-recovered state and reseed through
-    # the federation merge: the history and federation planes
-    leave_out=("test_columnar_equals_dict_core_property",),
-))
+globals().update(replayed_tests(replay("test_columnar_view.py", rewrites=_SCHEMA + [
+    ("    SchemaError,\n", "    ConfigError as SchemaError,\n"),
+])))
 
 INSTANCE = "parity-view"
 

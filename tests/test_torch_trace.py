@@ -6,8 +6,9 @@ same sample rate: the head-sampling decisions (which uids carry a trace, on
 which shard), the ring's entries (outcome, kind, shard, lane, sampling, stage
 names in order) and the per-stage histogram counts must match. The
 reference's own tracing scenarios (``tests/test_trace.py``) are replayed
-through the port, the serve wire's ``?trace=1`` frames included, except the
-scenarios of the federation plane.
+through the port whole: the serve wire's ``?trace=1`` frames, the
+federator's trace joining (``FleetTraceCollector``), ``/debug/trace/diagnosis``
+and the ``trace.federation`` schema included.
 """
 
 import numpy as np
@@ -115,14 +116,46 @@ def test_stage_vocabulary_matches():
 _REWRITES = [
     ("k8s_watcher_tpu.metrics.server", "k8s_watcher_tpu_torch.status"),
     ("k8s_watcher_tpu.metrics.audit", "k8s_watcher_tpu_torch.audit"),
-    ("import k8s_watcher_tpu.trace.trace as trace_mod", "import k8s_watcher_tpu_torch.trace as trace_mod"),
-    ('logger="k8s_watcher_tpu.trace.trace"', 'logger="k8s_watcher_tpu_torch.trace"'),
+    ("k8s_watcher_tpu.config.schema import AppConfig, SchemaError",
+     "k8s_watcher_tpu_torch.config import AppConfig, ConfigError as SchemaError"),
+    ("k8s_watcher_tpu.config.schema", "k8s_watcher_tpu_torch.config"),
 ]
-globals().update(replayed_tests(
-    replay("test_trace.py", rewrites=_REWRITES),
-    only=("TestSamplerDeterminism", "TestAnomalyAlwaysSamples", "TestSpanTreeCompleteness", "TestHotPathNoAlloc",
-          "TestDebugTraceRoute", "TestPrometheusGolden", "TestEgressAuditOutcomes", "TestHealthzEgressLiveness",
-          "TestTraceIdInLogs", "TestDebugTraceHardening", "TestFleetStageVocabulary", "TestTracedWireFrames"),
-    # /debug/trace/diagnosis belongs to the federation plane
-    leave_out=("TestDebugTraceHardening.test_diagnosis_route_404_when_not_wired_200_when_wired",),
-))
+globals().update(replayed_tests(replay("test_trace.py", rewrites=_REWRITES)))
+
+
+def test_every_name_of_the_single_module_trace_still_imports():
+    """The tracing plane became a package (``trace/trace.py`` and
+    ``trace/federation.py``); every name the single module exported still
+    imports from ``k8s_watcher_tpu_torch.trace`` and is the module's own."""
+    import k8s_watcher_tpu_torch.trace.trace as module
+    from k8s_watcher_tpu_torch.trace import (  # noqa: F401
+        ALL_STAGES,
+        ANOMALY_OUTCOMES,
+        FEDERATE_MERGE_STAGE,
+        FEDERATION_STAGES,
+        GLOBAL_SERVE_STAGE,
+        SERVE_STAGE,
+        SERVE_WIRE_STAGE,
+        STAGES,
+        WAL_STAGE,
+        Trace,
+        TraceRing,
+        TraceSampler,
+        Tracer,
+        clear_current_traces,
+        current_traces,
+        export_trace,
+        logger,
+        new_trace_id,
+        note_send_attempt,
+        observe_conn_borrow,
+        send_attempts,
+        set_current_traces,
+        trace_from_wire,
+        wire_trace,
+    )
+
+    names = dict(locals())
+    del names["module"]
+    assert len(names) == 24
+    assert all(getattr(module, name) is obj for name, obj in names.items())
