@@ -107,7 +107,23 @@ Phases, each fatal on failure (exit code 1, no result line):
    fold to the root's ``/serve/fleet``, the relay encodes no frame while the
    root does, resume tokens cross the tier both ways, ``/debug/relay``
    reports depth 1, a restart with ``backfill`` resumes a pre-stop token
-   with deltas, and the probe runs healthy beside it.
+   with deltas, and the probe runs healthy beside it;
+14. the probe plane as deployed on GPU nodes: (a) the graft entry
+   (``k8s_watcher_tpu_torch/graft.py``): ``entry()`` on the card, its f32
+   product and its checksum against the CPU's f32 product of the same bf16
+   inputs (within 1e-4 x max|out| and 1e-5 x sum|out|), NaN for an ``inf``
+   input, the CUDA kernels the step launched and its median time over 20
+   calls; (b) the container command of ``deploy/gpu-probe-daemonset.yaml``
+   (``torchrun --standalone --nproc-per-node=gpu -m
+   k8s_watcher_tpu_torch.probe_agent production``) run as a subprocess with
+   ``--once``: ``production`` as shipped at full width (4 MiB all-reduce,
+   1024^2 GEMM chain, 256 MiB HBM buffers, 128 passes), exit 0 with a healthy
+   payload, HBM read and write from the card with integrity ok, and each CUDA
+   kernel launched in the child (its counts through
+   ``K8S_WATCHER_TPU_LAUNCH_COUNTS``); its wall time; (c)
+   ``dryrun_multichip(128)``, the JAX package's 128-device dryrun shape on
+   128 gloo ranks in CPU processes on the card's host (the 256-edge link
+   walk, 6 slice pairs): its wall time and peak host memory.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -3283,6 +3299,136 @@ def federation_phases(dev, name: str, power_limit: str, seed: int, phase10: dict
     return runs
 
 
+# -- phase 14: the graft entry and the DaemonSet's command ------------------------
+
+ENTRY_CALLS = 20
+
+
+def graft_phase(torch, name: str, power_limit: str) -> None:
+    """``entry()``'s step on the card against the CPU's f32 product of the
+    same bf16 inputs; prints its median time over ``ENTRY_CALLS`` calls and
+    the CUDA kernels one call launched."""
+    from k8s_watcher_tpu_torch import graft
+
+    step, (a, b) = graft.entry()
+    if a.device.type != "cuda" or a.dtype != torch.bfloat16 or tuple(a.shape) != graft.ENTRY_SHAPE:
+        fail(f"entry() gave {a.dtype} {tuple(a.shape)} on {a.device}, not bf16 {graft.ENTRY_SHAPE} on the card")
+    out = graft.gemm_f32(a, b)
+    checksum = float(step(a, b))
+    want = torch.mm(a.cpu().float(), b.cpu().float())
+    out_err = (out.cpu() - want).abs().max().item()
+    sum_err = abs(checksum - float(want.sum()))
+    if out.dtype != torch.float32 or out_err > 1e-4 * want.abs().max().item():
+        fail(f"entry()'s product ({out.dtype}) is {out_err} from the CPU's f32 product")
+    if sum_err > 1e-5 * want.abs().sum().item():
+        fail(f"entry()'s checksum {checksum} is {sum_err} from the CPU's {float(want.sum())}")
+    poisoned = a.clone()
+    poisoned[7, 11] = float("inf")
+    if not torch.isnan(step(poisoned, b)).item():
+        fail("entry()'s step gave a number for an inf input")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(a, b)
+        torch.cuda.synchronize()
+    kernels = sorted({e.key[:60] for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA})
+    times = []
+    for _ in range(ENTRY_CALLS + 3):
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step(a, b)
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    times = times[3:]
+    print("graft entry: " + json.dumps({
+        "step_ms_median": statistics.median(times), "step_ms": times, "max_abs_err": out_err,
+        "checksum": checksum, "checksum_err": sum_err, "cuda_kernels": kernels or "not measured",
+        "device": name, "power_limit": power_limit,
+    }))
+
+
+def daemonset_phase(name: str, power_limit: str) -> None:
+    """The DaemonSet manifest's container command with ``--once``, as a
+    subprocess: ``production`` as shipped on the card. ``torchrun`` is run
+    as ``python -m torch.distributed.run``, the same program."""
+    import yaml
+
+    with open(os.path.join(REPO, "deploy", "gpu-probe-daemonset.yaml")) as fh:
+        (daemonset,) = [d for d in yaml.safe_load_all(fh) if d["kind"] == "DaemonSet"]
+    (container,) = daemonset["spec"]["template"]["spec"]["containers"]
+    command = container["command"]
+    if command[0] != "torchrun" or command[-3:] != ["-m", "k8s_watcher_tpu_torch.probe_agent", "production"]:
+        fail(f"the DaemonSet runs {command}")
+    counts = tempfile.TemporaryDirectory()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    env.update(PROD_CLUSTERAPI_API_KEY=API_KEY, NODE_NAME=NODE_NAME, PYTHONPATH=REPO,
+               K8S_WATCHER_TPU_LAUNCH_COUNTS=os.path.join(counts.name, "launches"))
+    argv = [sys.executable, "-m", "torch.distributed.run", *command[1:], "--once"]
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(argv, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("the DaemonSet's command did not finish in 600 s")
+    wall_s = time.monotonic() - t0
+    if proc.returncode != 0:
+        fail(f"the DaemonSet's command exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    payload = json.loads(proc.stdout[proc.stdout.index("{"):])
+    with open(os.path.join(counts.name, "launches.0")) as fh:
+        launches = json.load(fh)
+    counts.cleanup()
+    hbm, hbm_w = payload.get("hbm") or {}, payload.get("hbm_write") or {}
+    print("daemonset command: " + json.dumps({
+        "argv": command + ["--once"], "wall_s": wall_s, "healthy": payload["healthy"],
+        "duration_ms": payload["duration_ms"], "launches": launches,
+        "hbm_read_gbps": hbm.get("read_gbps"), "hbm_write_gbps": hbm_w.get("write_gbps"),
+        "mxu_tflops_median": (payload.get("mxu") or {}).get("tflops_median"),
+        "device": name, "power_limit": power_limit,
+    }))
+    if not payload["healthy"] or payload["devices"]["devices"][0]["platform"] != "cuda":
+        fail(f"the DaemonSet's payload: healthy={payload['healthy']}, devices {payload['devices']}")
+    for probe in (hbm, hbm_w):
+        if probe.get("interpreted") or not probe.get("ok") or probe.get("integrity_ok") is not True:
+            fail(f"the DaemonSet's HBM probe did not run on the card with integrity: {probe}")
+    sizes = (hbm.get("bytes"), hbm.get("repeats"), payload["mxu"].get("size"), payload["ici"]["payload_bytes"])
+    if sizes != (256 * MIB, 128, 1024, 4 * MIB):
+        fail(f"the DaemonSet did not run production's sizes (hbm bytes, passes, GEMM, all-reduce): {sizes}")
+    if min(launches.values()) <= 0:
+        fail(f"the DaemonSet's run launched {launches}")
+
+
+def dryrun_phase() -> None:
+    """``dryrun_multichip(128)`` on this host's CPUs; its wall time and the
+    host memory it took at the peak (``MemAvailable`` sampled every 0.2 s)."""
+    from k8s_watcher_tpu_torch.graft import dryrun_multichip
+
+    def available() -> int:
+        with open("/proc/meminfo") as fh:
+            return next(int(line.split()[1]) * 1024 for line in fh if line.startswith("MemAvailable:"))
+
+    base = available()
+    low = [base]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.2):
+            low[0] = min(low[0], available())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    t0 = time.monotonic()
+    try:
+        result = dryrun_multichip(128)
+    except RuntimeError as exc:
+        fail(f"dryrun_multichip(128) failed: {exc}")
+    finally:
+        done.set()
+        sampler.join()
+    print("graft dryrun: " + json.dumps({
+        "wall_s": time.monotonic() - t0, "peak_host_bytes": base - low[0], "host_cpus": os.cpu_count(), **result}))
+    if (result["hosts"], result["chips"], result["links"], result["dcn_pairs"]) != (8, 16, 256, 6):
+        fail(f"dryrun_multichip(128) gave {result}")
+
+
 def main() -> int:
     import torch
 
@@ -3669,6 +3815,11 @@ def main() -> int:
         for kernel in kernels:
             if launches[kernel["name"]] <= 0:
                 fail(f"kernel {kernel['name']} was not launched by the {run}'s run")
+
+    # 14. the graft entry, and the DaemonSet's own command
+    graft_phase(torch, name, power_limit)
+    daemonset_phase(name, power_limit)
+    dryrun_phase()
 
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()

@@ -8,13 +8,18 @@ built one is reused by every later process. Nothing is compiled or loaded at
 import: the CPU tests import this module on machines with no ``nvcc``.
 
 Every wrapper in ``kernels/`` calls :func:`count` exactly where it launches
-its kernel, so a run can show which kernels its main path went through.
+its kernel, so a run can show which kernels its main path went through. A
+process started with ``K8S_WATCHER_TPU_LAUNCH_COUNTS=<path>`` writes its
+counts as JSON to ``<path>.<RANK>`` when it exits, for a parent that drives a
+path through a command (``chip_smoke.py`` runs the DaemonSet's command so).
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import hashlib
+import json
 import os
 import shutil
 import subprocess
@@ -52,6 +57,18 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+LAUNCH_COUNTS_ENV = "K8S_WATCHER_TPU_LAUNCH_COUNTS"
+
+
+def _write_launch_counts(path: str) -> None:
+    with open(path, "w") as fh:
+        json.dump(launch_counts(), fh)
+
+
+if os.environ.get(LAUNCH_COUNTS_ENV):
+    atexit.register(_write_launch_counts, f"{os.environ[LAUNCH_COUNTS_ENV]}.{os.environ.get('RANK', '0')}")
 
 
 def _nvcc() -> str:

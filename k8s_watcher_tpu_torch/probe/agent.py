@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import collections
 import datetime
+import json
 import logging
 import threading
 import time
@@ -28,9 +29,12 @@ from k8s_watcher_tpu_torch.config import TpuConfig
 from k8s_watcher_tpu_torch.metrics import MetricsRegistry
 from k8s_watcher_tpu_torch.pipeline.pipeline import Notification
 from k8s_watcher_tpu_torch.probe.device import (
+    all_gather_rows,
     enumerate_devices,
     host_identity,
     host_identity_map,
+    node_ranks,
+    process_count,
     process_index,
     resolve_device,
 )
@@ -40,11 +44,39 @@ from k8s_watcher_tpu_torch.probe.links import run_link_probe
 from k8s_watcher_tpu_torch.probe.multislice import run_multislice_probe
 from k8s_watcher_tpu_torch.probe.report import ProbeReport
 from k8s_watcher_tpu_torch.probe.trend import TrendTracker
+from k8s_watcher_tpu_torch.remediate.policy import local_findings
 
 logger = logging.getLogger(__name__)
 
 PROFILE_PREFIX = "probe-"
 PROFILE_SUFFIX = ".pt.trace.json"
+
+
+# each evidence string is clipped so that a rank's findings (at most four:
+# liveness, GEMM, HBM read, HBM write) fit one row of the identity wire
+_FINDING_BYTES = 120
+
+
+def gather_node_findings(report: ProbeReport, device=None) -> dict:
+    """``str(rank) -> local findings`` of every rank on this rank's node that
+    has any (remediate/policy.py:local_findings), from one fixed-size gather
+    of every rank's own (probe/device.py:all_gather_rows). A collective:
+    every rank calls it together."""
+    mine = [e.encode("utf-8")[:_FINDING_BYTES].decode("utf-8", errors="ignore") for e in local_findings(report)]
+    rows = all_gather_rows(json.dumps(mine, ensure_ascii=False).encode("utf-8"), device)
+    hosts = report.hosts or {}
+    me = process_index()
+    node = node_ranks(hosts, (hosts.get(str(me)) or {}).get("node_name")) or [me]
+    out = {}
+    for rank in node:
+        try:
+            findings = json.loads(rows[rank].decode("utf-8"))
+        except (ValueError, UnicodeDecodeError):
+            logger.error("Rank %d's local findings did not decode: %r", rank, rows[rank][:80])
+            continue
+        if findings:
+            out[str(rank)] = findings
+    return out
 
 
 class ProbeAgent:
@@ -173,6 +205,13 @@ class ProbeAgent:
         report.trend_alerts = self._fold_trends(
             ici, mxu, hbm, hbm_write, links, multislice, cycle_healthy=report.healthy
         )
+        if process_count() > 1:
+            # every rank, every cycle, armed or not: a collective that only
+            # armed ranks joined would hang the group
+            try:
+                report.node_findings = gather_node_findings(report, self.device)
+            except Exception as exc:  # noqa: BLE001 — the cycle's readings stand without it
+                logger.error("Gathering the node's local findings failed: %s", exc)
         self.metrics.counter("probe_runs").inc()
         if ici.psum_rtt_ms >= 0:
             self.metrics.histogram("probe_psum_rtt").record(ici.psum_rtt_ms / 1e3)

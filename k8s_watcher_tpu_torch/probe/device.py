@@ -103,6 +103,30 @@ def _encode_identity_wire(identity: Dict[str, Any]) -> bytes:
     return json.dumps({"process_index": identity["process_index"]}).encode("utf-8")
 
 
+def all_gather_rows(raw: bytes, device: Optional[torch.device] = None) -> List[bytes]:
+    """Every rank's ``raw`` (fewer than ``_IDENTITY_WIRE_BYTES`` bytes), by rank.
+
+    One ``all_gather_into_tensor`` of a fixed-size zero-padded row per rank,
+    on ``device`` under NCCL and on the CPU under gloo. Every rank must call
+    it together."""
+    width = _IDENTITY_WIRE_BYTES
+    if len(raw) >= width:
+        raise ValueError(f"{len(raw)} bytes do not fit a {width}-byte row")
+    if dist.get_backend() == "nccl":
+        device = device if device is not None and device.type == "cuda" else torch.device(
+            "cuda", torch.cuda.current_device())
+    else:
+        device = torch.device("cpu")
+    buf = torch.zeros(width, dtype=torch.uint8)
+    if raw:
+        buf[: len(raw)] = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    n = process_count()
+    gathered = torch.empty(n * width, dtype=torch.uint8, device=device)
+    dist.all_gather_into_tensor(gathered, buf.to(device))
+    rows = gathered.cpu().view(n, width).numpy()
+    return [rows[idx].tobytes().rstrip(b"\x00") for idx in range(n)]
+
+
 # str(rank) -> identity, gathered once per default group: identities are
 # stable, and the gather is a collective not worth repeating every cycle
 _IDENTITY_MAPS: Dict[Any, Dict[str, Dict[str, Any]]] = {}
@@ -113,9 +137,8 @@ def host_identity_map(device: Optional[torch.device] = None) -> Dict[str, Dict[s
 
     A suspect GPU found by the link walk lives on another rank, but rank 0
     reports: this map names the node to drain. Several ranks gather one
-    fixed-size utf-8 buffer each (``all_gather_into_tensor``; on ``device``
-    under NCCL, on the CPU under gloo) once per default group; a row that
-    does not decode keeps its index with an ``error``."""
+    fixed-size utf-8 row each (:func:`all_gather_rows`) once per default
+    group; a row that does not decode keeps its index with an ``error``."""
     if process_count() == 1:
         mine = host_identity()
         return {str(mine["process_index"]): mine}
@@ -123,21 +146,8 @@ def host_identity_map(device: Optional[torch.device] = None) -> Dict[str, Dict[s
     cached = _IDENTITY_MAPS.get(world)
     if cached is not None:
         return cached
-    if dist.get_backend() == "nccl":
-        device = device if device is not None and device.type == "cuda" else torch.device(
-            "cuda", torch.cuda.current_device())
-    else:
-        device = torch.device("cpu")
-    raw = _encode_identity_wire(host_identity())
-    buf = torch.zeros(_IDENTITY_WIRE_BYTES, dtype=torch.uint8)
-    buf[: len(raw)] = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
-    n = process_count()
-    gathered = torch.empty(n * _IDENTITY_WIRE_BYTES, dtype=torch.uint8, device=device)
-    dist.all_gather_into_tensor(gathered, buf.to(device))
-    rows = gathered.cpu().view(n, _IDENTITY_WIRE_BYTES).numpy()
     out: Dict[str, Dict[str, Any]] = {}
-    for idx in range(n):
-        row = rows[idx].tobytes().rstrip(b"\x00")
+    for idx, row in enumerate(all_gather_rows(_encode_identity_wire(host_identity()), device)):
         try:
             out[str(idx)] = json.loads(row.decode("utf-8"))
         except (ValueError, UnicodeDecodeError):
@@ -145,6 +155,19 @@ def host_identity_map(device: Optional[torch.device] = None) -> Dict[str, Dict[s
             out[str(idx)] = {"process_index": idx, "error": "identity decode failed"}
     _IDENTITY_MAPS[world] = out
     return out
+
+
+def node_ranks(hosts: Dict[str, Dict[str, Any]], node_name: Optional[str]) -> List[int]:
+    """The ranks of ``hosts`` (an identity map) on node ``node_name``, in
+    order; none when the node is unnamed."""
+    if not node_name:
+        return []
+    return sorted(int(r) for r, identity in hosts.items() if (identity or {}).get("node_name") == node_name)
+
+
+def local_rank() -> int:
+    """This rank's index on its node: ``LOCAL_RANK`` under ``torchrun``, else 0."""
+    return int(os.environ.get("LOCAL_RANK", "0"))
 
 
 def _device_entry(device: torch.device, own: bool) -> Dict[str, Any]:

@@ -27,6 +27,10 @@ class ProbeReport:
     hosts: Optional[Dict[str, Any]] = None  # str(rank) -> identity, every rank
     rtt_warn_ms: float = 50.0
     duration_ms: float = 0.0
+    # str(rank) -> local findings (remediate/policy.py:local_findings) of
+    # every rank on this rank's node, gathered each cycle when there are
+    # several ranks; read by the policy, never sent
+    node_findings: Optional[Dict[str, List[str]]] = None
 
     @property
     def healthy(self) -> bool:

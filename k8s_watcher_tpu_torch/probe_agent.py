@@ -5,15 +5,18 @@ Usage: ``python -m k8s_watcher_tpu_torch.probe_agent [environment] [--once] [--c
 Reads the environment's settings from ``config/`` (relative to the working
 directory). Runs on this rank's GPU; ``--cpu`` runs on the CPU with the
 kernels' plain versions, held to the ``cpu`` platform. Under ``torchrun
---nproc-per-node N`` every rank runs and joins the collectives.
+--nproc-per-node N`` every rank runs and joins the collectives; the ranks of
+a node share its network namespace, so only the one with ``LOCAL_RANK`` 0
+serves the status routes, one server per node as the JAX package's one
+process per host has.
 
 - ``--once``: one cycle with every sub-probe the settings enable; prints the
   payload as JSON and exits 1 when the report is unhealthy.
 - Without it, the loop a DaemonSet runs (:func:`run_loop`): a cycle every
   ``tpu.probe.interval_seconds``, reports POSTed to ``clusterapi`` through
   the dispatcher (rank 0 for the group, another rank when its own view is
-  unhealthy), the status server on ``tpu.probe.status_port`` (``/metrics``,
-  ``/healthz``, ``/debug/trend``, ``/debug/probes``, and
+  unhealthy), the status server on ``tpu.probe.status_port`` (local rank 0:
+  ``/metrics``, ``/healthz``, ``/debug/trend``, ``/debug/probes``, and
   ``/debug/remediation`` when remediation is armed) and, with
   ``tpu.remediation.enabled``, the remediation policy after every cycle.
   SIGINT or SIGTERM stops it and the command exits 0.
@@ -24,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import logging
+import os
 import signal
 import sys
 import threading
@@ -40,7 +44,7 @@ from k8s_watcher_tpu_torch.notify.client import ClusterApiClient
 from k8s_watcher_tpu_torch.notify.dispatcher import Dispatcher, build_notifier
 from k8s_watcher_tpu_torch.parallel.mesh import initialize_process_group
 from k8s_watcher_tpu_torch.probe.agent import ProbeAgent
-from k8s_watcher_tpu_torch.probe.device import process_count, resolve_device
+from k8s_watcher_tpu_torch.probe.device import local_rank, process_count, resolve_device
 from k8s_watcher_tpu_torch.remediate import ProbeRemediationPolicy, build_actuator, build_policy
 from k8s_watcher_tpu_torch.status import Liveness, StatusServer
 
@@ -71,9 +75,10 @@ def _arm_remediation(agent: ProbeAgent, config: AgentConfig, environment: str, d
     """The remediation policy as the agent's report observer, with
     ``tpu.remediation.enabled``.
 
-    Every rank arms one: rank 0 acts on slice-scope findings, every rank on
-    the local findings about its own GPU (remediate/policy.py), so the fences,
-    ``max_quarantined_nodes`` included, are per rank. The connection needs
+    Every rank arms one: rank 0 acts on slice-scope findings, the lowest
+    rank of each node on the local findings its node's ranks gathered
+    (remediate/policy.py), so the fences, ``max_quarantined_nodes`` included,
+    are per acting rank. The connection needs
     get/list/patch on nodes (the pod's ServiceAccount in-cluster). Without a
     usable connection, shown by ``/version`` and a one-node LIST failing, the
     agent logs and probes on without remediation."""
@@ -143,7 +148,9 @@ def run_loop(
     dispatcher.start()
     t = config.tpu
     liveness = None
-    if t.probe_status_port:
+    # one server per node: every cycle runs collectives over every rank, so
+    # local rank 0's heartbeat stops when any rank of the group stops cycling
+    if t.probe_status_port and local_rank() == 0:
         # beats land at cycle end only, so the steady gap is cycle +
         # interval + the policy's I/O; the first cycle pays every set-up
         liveness = Liveness(
@@ -209,16 +216,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         for signum in (signal.SIGINT, signal.SIGTERM):
             signal.signal(signum, lambda *_: stop.set())
         run_loop(config, environment, stop, device=device, expected_platform=expected_platform)
+        print(f"probe agent stopped (rank {os.environ.get('RANK', '0')})", flush=True)
         return 0
+    # join the group before the cycle's inventory, which names this rank
+    initialize_process_group(resolve_device(device))
     agent = ProbeAgent(
         config.tpu, environment=environment, sink=lambda notification: None,
         device=device, expected_platform=expected_platform,
     )
-    try:
-        report = agent.run_once()
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+    report = agent.run_once()
+    if process_count() > 1:
+        dist.barrier()  # no rank tears the group down while a peer still talks to it
+    dist.destroy_process_group()
     print(json.dumps(report.to_payload(), indent=2, default=str))
     return 0 if report.healthy else 1
 

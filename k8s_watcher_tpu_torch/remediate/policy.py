@@ -24,7 +24,12 @@ Ranks, where the JAX package has devices and processes:
 - Multislice ``slice_processes`` are ranks already, and the DCN pair rule
   is slice scope as in the JAX package.
 - Liveness, GEMM and HBM findings concern the reporting rank's own GPU:
-  ``local`` scope, which the rank owning it acts on (rank 0 included).
+  ``local`` scope (:func:`local_findings`). The JAX package runs one process
+  per host, so a node has one actor; the port runs one rank per GPU. So the
+  agent gathers every rank's local findings each cycle
+  (``ProbeReport.node_findings``, probe/agent.py), and only the lowest rank
+  of each node acts on them, on its node's findings merged into one evidence
+  list: one payload, one PATCH and one rate and budget count per node.
 """
 
 from __future__ import annotations
@@ -34,10 +39,34 @@ import threading
 from datetime import datetime, timezone
 from typing import Any, Callable, Dict, List, Optional
 
-from k8s_watcher_tpu_torch.probe.device import process_count, process_index
+from k8s_watcher_tpu_torch.probe.device import node_ranks, process_count, process_index
 from k8s_watcher_tpu_torch.remediate.actuator import ActionRecord, NodeActuator
 
 logger = logging.getLogger(__name__)
+
+
+def local_findings(report) -> List[str]:
+    """The evidence of ``report``'s ``local`` findings, all about the
+    reporting rank's own GPU: its liveness, a non-finite GEMM, HBM blocks
+    that failed their readback or a failed integrity check."""
+    out: List[str] = []
+    for entry in (report.devices or {}).get("devices") or []:
+        if entry.get("alive") is False:
+            # liveness runs on the rank's own GPU only (the node's other
+            # GPUs are alive=None, process_index=None)
+            out.append(f"device probe: chip {entry.get('id')} failed its liveness computation")
+    mxu = report.mxu
+    if mxu is not None and mxu.get("error") is None and mxu.get("finite") is False:
+        out.append("mxu probe: matmul produced non-finite values")
+    for label, probe in (("hbm read", report.hbm), ("hbm write", report.hbm_write)):
+        if probe is None or probe.get("error") is not None:
+            continue
+        bad = probe.get("bad_blocks")
+        if bad:
+            out.append(f"{label} probe: {len(bad)} HBM block(s) failed pattern readback")
+        elif probe.get("integrity_ok") is False:
+            out.append(f"{label} probe: checksum integrity failed")
+    return out
 
 
 class ProbeRemediationPolicy:
@@ -68,7 +97,6 @@ class ProbeRemediationPolicy:
         """``node_name -> [(scope, evidence), ...]`` for this report; scope is
         ``"slice"`` (findings every rank's report holds) or ``"local"``
         (findings about the reporting rank's own GPU)."""
-        devices = (report.devices or {}).get("devices") or []
         hosts = report.hosts or {}
 
         def node_of(rank) -> Optional[str]:
@@ -138,28 +166,9 @@ class ProbeRemediationPolicy:
                         f"common endpoint of {count} suspect DCN slice pairs",
                         scope="slice",
                     )
-        for entry in devices:
-            if entry.get("alive") is False:
-                # liveness runs on the rank's own GPU only (the node's other
-                # GPUs are alive=None, process_index=None)
-                implicate(
-                    entry.get("process_index"),
-                    f"device probe: chip {entry.get('id')} failed its liveness computation",
-                    scope="local",
-                )
-        # the GEMM and HBM probes run on the reporting rank's own GPU
-        local = (report.devices or {}).get("process_index")
-        mxu = report.mxu
-        if mxu is not None and mxu.get("error") is None and mxu.get("finite") is False:
-            implicate(local, "mxu probe: matmul produced non-finite values", scope="local")
-        for label, probe in (("hbm read", report.hbm), ("hbm write", report.hbm_write)):
-            if probe is None or probe.get("error") is not None:
-                continue
-            bad = probe.get("bad_blocks")
-            if bad:
-                implicate(local, f"{label} probe: {len(bad)} HBM block(s) failed pattern readback", scope="local")
-            elif probe.get("integrity_ok") is False:
-                implicate(local, f"{label} probe: checksum integrity failed", scope="local")
+        # the GEMM and HBM probes, like liveness, run on the reporting rank's own GPU
+        for evidence in local_findings(report):
+            implicate((report.devices or {}).get("process_index"), evidence, scope="local")
         if unmapped:
             logger.warning(
                 "Probe implicates hardware on processes with no node_name "
@@ -170,22 +179,44 @@ class ProbeRemediationPolicy:
             out["__unmapped__"] = unmapped  # visible in notifications, never acted on
         return out
 
+    @staticmethod
+    def _own_share(report, scoped: Dict[str, List]) -> Dict[str, List]:
+        """What this rank acts on among several: rank 0 the ``slice``
+        findings (and the unmapped ones, which it only reports); the lowest
+        rank of each node the ``local`` findings of its node's ranks; any
+        other rank nothing.
+
+        The node's findings come from ``report.node_findings`` (``str(rank)
+        -> evidence``, gathered by the agent every cycle), or are this rank's
+        own when the report carries none. With findings from several ranks
+        each evidence names its rank, so the reason cites every GPU."""
+        me = process_index()
+        out: Dict[str, List] = {}
+        if me == 0:
+            for node, evidence in scoped.items():
+                kept = evidence if node == "__unmapped__" else [e for e in evidence if e[0] == "slice"]
+                if kept:
+                    out[node] = kept
+        hosts = report.hosts or {}
+        own = (hosts.get(str(me)) or {}).get("node_name")
+        if own and node_ranks(hosts, own)[:1] == [me]:
+            gathered = report.node_findings
+            if gathered is None:
+                gathered = {str(me): local_findings(report)}
+            found = sorted((int(r), evidence) for r, evidence in gathered.items() if evidence)
+            several = len(found) > 1
+            local = [("local", f"rank {r}: {e}" if several else e) for r, evidence in found for e in evidence]
+            if local:
+                out.setdefault(own, []).extend(local)
+        return out
+
     # -- the per-cycle fold ------------------------------------------------
 
     def observe_report(self, report) -> List[ActionRecord]:
         """Fold one probe report; returns the actions taken (possibly [])."""
         scoped = self._implicated(report)
-        if process_count() > 1 and process_index() != 0:
-            # a rank other than 0 acts only on LOCAL findings naming its OWN
-            # node: its own GPU's faults appear in no other rank's report
-            hosts = report.hosts or {}
-            own = (hosts.get(str(process_index())) or {}).get("node_name")
-            filtered: Dict[str, List] = {}
-            if own and own in scoped:
-                kept = [e for e in scoped[own] if e[0] == "local"]
-                if kept:
-                    filtered[own] = kept
-            scoped = filtered
+        if process_count() > 1:
+            scoped = self._own_share(report, scoped)
         implicated = {n: (ev if n == "__unmapped__" else [e[1] for e in ev]) for n, ev in scoped.items()}
         actionable = {n: ev for n, ev in implicated.items() if n != "__unmapped__"}
         records: List[ActionRecord] = []

@@ -3,11 +3,13 @@ and neither ``requests`` nor ``urllib3`` (its HTTP runs on the standard
 library).
 
 A subprocess, because ``tests/conftest.py`` imports jax into this one. It
-imports every module of ``k8s_watcher_tpu_torch``, runs one CPU probe cycle
-through the ``probe_agent`` entry point with the ``production`` settings
-(the per-link walk on), and reports what ``sys.modules``
-holds afterwards. A second test runs the entry point's loop mode as a
-process, against a local receiver, and stops it with SIGINT. A third runs
+imports every module of ``k8s_watcher_tpu_torch`` and the root's
+``__graft_entry_gpu__.py``, runs one CPU probe cycle through the
+``probe_agent`` entry point with the ``production`` settings (the per-link
+walk on), and reports what ``sys.modules`` holds afterwards. A second test
+runs the entry point's loop mode as a process, against a local receiver, and
+stops it with SIGINT; a third runs it under ``torchrun`` with two ranks on
+one node, where only local rank 0 serves the status port. Another runs
 the watcher, ``python -m k8s_watcher_tpu_torch development --cpu``, with the
 ``development`` planes as shipped (serve, analytics, health, SLO) on a
 temporary config that points it at a local receiver and turns the probe on:
@@ -45,6 +47,7 @@ import k8s_watcher_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(k8s_watcher_tpu_torch.__path__, "k8s_watcher_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+import __graft_entry_gpu__
 from k8s_watcher_tpu_torch import probe_agent
 out = io.StringIO()
 with contextlib.redirect_stdout(out):
@@ -55,7 +58,7 @@ loaded = sorted(m for m in sys.modules
                 or m == "k8s_watcher_tpu" or m.startswith("k8s_watcher_tpu.")
                 or m == "requests" or m.startswith("requests.") or m == "urllib3" or m.startswith("urllib3."))
 print(json.dumps({"modules": names, "rc": rc, "healthy": payload["healthy"], "links": payload["links"],
-                  "forbidden": loaded}))
+                  "forbidden": loaded, "graft_entry": callable(__graft_entry_gpu__.entry)}))
 """
 
 
@@ -65,7 +68,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
     result = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert result["forbidden"] == []
+    assert result["forbidden"] == [] and result["graft_entry"] is True
     assert result["rc"] == 0 and result["healthy"] is True
     assert result["links"] is not None and result["links"]["ok"]
     for module in ("config", "metrics", "carry", "probe_agent", "logging_setup", "status", "app", "cli",
@@ -84,7 +87,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "analytics", "analytics.encode", "analytics.backend", "analytics.kernels",
                    "analytics.whatif", "analytics.plane", "trace.trace", "trace.federation",
                    "federate", "federate.client", "federate.merge", "federate.plane", "federate.fanin",
-                   "relay", "relay.plane"):
+                   "relay", "relay.plane", "graft", "chaos_probe", "parallel.cpu_ranks"):
         assert f"k8s_watcher_tpu_torch.{module}" in result["modules"], module
 
 
@@ -161,6 +164,112 @@ def test_probe_agent_loop_mode_serves_reports_and_stops_on_sigint(tmp_path):
     assert path == "/api/pods/update" and auth == "Bearer test-key"
     assert payload["event_type"] == "TPU_PROBE" and payload["healthy"] is True
     assert f"probe status endpoint on :{status_port}" in out
+
+
+def _listeners(port: int) -> int:
+    """How many sockets listen on TCP ``port`` on this host (``/proc/net``)."""
+    count = 0
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        if not os.path.exists(table):
+            continue
+        with open(table) as fh:
+            for line in fh.readlines()[1:]:
+                local, state = line.split()[1], line.split()[3]
+                count += state == "0A" and int(local.rsplit(":", 1)[1], 16) == port
+    return count
+
+
+def _torchrun_workers(agent_pid: int) -> dict:
+    """``LOCAL_RANK -> pid`` of the processes a ``torchrun`` agent started."""
+    out = {}
+    for task in os.listdir(f"/proc/{agent_pid}/task"):
+        with open(f"/proc/{agent_pid}/task/{task}/children") as fh:
+            for pid in map(int, fh.read().split()):
+                with open(f"/proc/{pid}/environ", "rb") as env:
+                    variables = dict(v.split(b"=", 1) for v in env.read().split(b"\0") if b"=" in v)
+                if b"LOCAL_RANK" in variables:
+                    out[int(variables[b"LOCAL_RANK"])] = pid
+    return out
+
+
+def test_probe_agent_loop_under_torchrun_serves_one_status_server_per_node(tmp_path):
+    """``torchrun --nproc-per-node 2 -m k8s_watcher_tpu_torch.probe_agent
+    production --cpu``, the DaemonSet's process on a node of two GPUs: the
+    ranks share the node's network, and only local rank 0 binds the status
+    port. Both ranks cycle (every cycle's collectives join them); when rank 1
+    stops, rank 0's heartbeat stops with it, and comes back when it resumes.
+    SIGTERM to ``torchrun`` stops both ranks cleanly."""
+    handler = type("Receiver", (_Receiver,), {"posts": []})
+    receiver = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    threading.Thread(target=receiver.serve_forever, daemon=True).start()
+    status_port = _free_port()
+    config_dir = tmp_path / "config"
+    config_dir.mkdir()
+    shutil.copy(REPO / "config" / "base.yaml", config_dir / "base.yaml")
+    overlay = yaml.safe_load((REPO / "config" / "production.yaml").read_text())
+    overlay["clusterapi"]["base_url"] = f"http://127.0.0.1:{receiver.server_address[1]}"
+    # latency limits far above a loaded CPU's jitter: only the stopped rank
+    # may make a cycle unhealthy
+    overlay["tpu"]["probe"].update({"interval_seconds": 0.2, "status_port": status_port, "hbm_bytes": 2 << 20,
+                                    "matmul_size": 64, "payload_bytes": 4096, "link_rtt_floor_ms": 250.0,
+                                    "rtt_warn_ms": 1000.0})
+    (config_dir / "production.yaml").write_text(yaml.safe_dump(overlay))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    env.update(PYTHONPATH=str(REPO), PROD_CLUSTERAPI_API_KEY="test-key", OMP_NUM_THREADS="1")
+    proc = subprocess.Popen(
+        # nice: the ranks' torch imports yield to the suite's other workers
+        ["nice", "-n", "10", sys.executable, "-m", "torch.distributed.run", "--standalone", "--nnodes=1",
+         "--nproc-per-node=2", "-m", "k8s_watcher_tpu_torch.probe_agent", "production", "--cpu"],
+        cwd=str(tmp_path), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+
+    def healthz():
+        with urllib.request.urlopen(f"http://127.0.0.1:{status_port}/healthz", timeout=5) as r:
+            return r.status, json.loads(r.read())
+
+    try:
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline and proc.poll() is None and len(handler.posts) < 3:
+            time.sleep(0.2)
+        assert proc.poll() is None and len(handler.posts) >= 3, proc.stdout.read()[-3000:]
+        status, body = healthz()
+        listeners = _listeners(status_port)
+        workers = _torchrun_workers(proc.pid)
+        # the cycle that waits on the stopped rank reads a long all-reduce
+        # and is unhealthy: only the reports before it are held to health
+        before = list(handler.posts)
+        os.kill(workers[1], signal.SIGSTOP)
+        try:
+            time.sleep(3.0)
+            stalled = healthz()[1]["last_heartbeat_age_seconds"]
+        finally:
+            os.kill(workers[1], signal.SIGCONT)
+        time.sleep(2.0)
+        resumed = healthz()[1]["last_heartbeat_age_seconds"]
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        receiver.shutdown()
+        receiver.server_close()
+    assert status == 200 and body["alive"] is True, out[-3000:]
+    assert listeners == 1 and sorted(workers) == [0, 1]
+    assert "Address already in use" not in out
+    assert out.count(f"probe status endpoint on :{status_port}") == 1
+    # rank 0 reports for the group; each cycle's collectives spanned both ranks
+    for path, auth, payload in before:
+        assert path == "/api/pods/update" and auth == "Bearer test-key"
+        assert payload["event_type"] == "TPU_PROBE" and payload["healthy"] is True
+        assert payload["devices"]["process_index"] == 0 and sorted(payload["hosts"]) == ["0", "1"]
+        assert payload["ici"]["n_devices"] == 2 and payload["links"]["n_observed"] == 1
+    assert stalled >= 2.0 and resumed < 1.5, (stalled, resumed)
+    assert "probe agent stopped (rank 0)" in out and "probe agent stopped (rank 1)" in out, out[-3000:]
+    # torchrun itself reports the signal it forwarded (torch.distributed.elastic
+    # raises SignalException after its workers have stopped)
+    assert proc.returncode == 0 or "got signal: 15" in out, out[-3000:]
 
 
 _WATCHER = """

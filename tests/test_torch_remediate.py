@@ -18,7 +18,11 @@ nothing else is rewritten.
 Two rank semantics differ from the reference on purpose (``ROADMAP.md`` §C):
 a link triangulation is slice scope on every rank, so only rank 0 acts on
 it (``test_own_triangulated_gpu_is_left_to_rank_0`` and the 8-rank gloo
-test pin it), and a link endpoint is looked up as a rank.
+test pin it), and a link endpoint is looked up as a rank. As the reference's
+one process per host, each node has one actor for its GPUs' local findings:
+its lowest rank, on the findings the agent gathered from every rank of the
+node (``ProbeReport.node_findings``;
+``test_two_ranks_of_one_node_each_with_a_local_fault``).
 """
 
 import dataclasses
@@ -490,8 +494,14 @@ def s_only_rank_0_acts_on_remote_findings(side):
 
 def s_non_zero_rank_acts_on_its_own_node(side):
     policy, _ = side.policy(confirm_cycles=1)
-    side.view(ref=(2, 1), port=(4, 3))
-    return [records(policy.observe_report(side.report(dead_devices=[3], reporting=(0, 3))))]
+    side.view(ref=(2, 1), port=(4, 2))
+    report = side.report(dead_devices=[3], reporting=(0, 3))
+    if side.pkg == "port":
+        # rank 3's dead GPU reaches its node's lowest rank, 2, which acts for
+        # the node, through the agent's gather (ProbeReport.node_findings)
+        report = dataclasses.replace(side.report(reporting=(0, 2)),
+                                     node_findings={"3": port_policy_mod.local_findings(report)})
+    return [records(policy.observe_report(report))]
 
 
 def s_non_zero_rank_ignores_remote_device_link_findings(side):
@@ -650,10 +660,11 @@ def test_own_triangulated_gpu_is_left_to_rank_0(sides):
 @pytest.mark.parametrize("fault", ["hbm", "mxu"])
 def test_two_ranks_of_one_node_each_with_a_local_fault(sides, fault):
     """Ranks 2 and 3 share tpu-node-1 and each finds a fault on its own GPU
-    (local scope), so both policies act on the node; the reference has one
-    process per host and one actor. The second actuator finds the node
-    already quarantined and adopts it: the node gets the reference's one
-    PATCH, while the cluster API gets one remediation payload per rank."""
+    (local scope). The agent gathers the node's local findings to each of its
+    ranks (``ProbeReport.node_findings``), and only the node's lowest rank
+    acts, on both, with a reason that names both ranks; rank 3 stays silent.
+    That is the reference's one process per host: one action, one PATCH and
+    one remediation payload for the node."""
 
     def faulty(side, reporting):
         report = side.report(reporting=reporting)
@@ -667,18 +678,24 @@ def test_two_ranks_of_one_node_each_with_a_local_fault(sides, fault):
     ref.view(ref=(2, 1), port=None)
     ref_policy, _ = ref.policy(confirm_cycles=1)
     ref_records = records(ref_policy.observe_report(faulty(ref, (1, None))))
+    gathered = {str(rank): port_policy_mod.local_findings(faulty(port, (None, rank))) for rank in (2, 3)}
     port_records = []
     for rank in (2, 3):
         port.view(ref=None, port=(4, rank))
         policy, _ = port.policy(confirm_cycles=1)
-        port_records.append(records(policy.observe_report(faulty(port, (None, rank)))))
+        report = faulty(port, (None, rank))
+        report.node_findings = gathered
+        port_records.append(records(policy.observe_report(report)))
     assert [(r["node"], r["applied"], r["adopted"]) for r in ref_records] == [("tpu-node-1", True, False)]
-    assert port_records[0] == ref_records
-    ((second,),) = port_records[1:]
-    assert (second["node"], second["ok"], second["applied"], second["adopted"]) == ("tpu-node-1", True, False, True)
+    ((first,), second) = port_records
+    assert {k: v for k, v in first.items() if k != "reason"} == {
+        k: v for k, v in ref_records[0].items() if k != "reason"}
+    assert second == []
+    (evidence,) = gathered["2"]
+    assert f"rank 2: {evidence}; rank 3: {evidence}" in first["reason"]
     assert port.specs() == ref.specs()
     assert [t["key"] for t in port.specs()["tpu-node-1"]["taints"]] == [TAINT_KEY]
-    assert [len(p["actions"]) for p in port.sent] == [1, 1] and len(ref.sent) == 1
+    assert len(port.sent) == len(ref.sent) == 1 and len(port.sent[0]["actions"]) == 1
 
 
 def test_link_endpoint_is_looked_up_as_a_rank(sides):
