@@ -123,7 +123,26 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``K8S_WATCHER_TPU_LAUNCH_COUNTS``); its wall time; (c)
    ``dryrun_multichip(128)``, the JAX package's 128-device dryrun shape on
    128 gloo ranks in CPU processes on the card's host (the 256-edge link
-   walk, 6 slice pairs): its wall time and peak host memory.
+   walk, 6 slice pairs): its wall time and peak host memory;
+15. the remediation loop: (a) ``python -m
+   k8s_watcher_tpu_torch.chaos_remediate --cpu-ranks 8`` as a child on the
+   card's host (an injected slow rank localized, confirmed, quarantined and
+   released over the port's mock apiserver, then a slow slice decided in dry
+   run), which must exit 0 with every stage passing; (b) on the card: the
+   port's ``MockApiServer`` holding phase 9's 2,048 GPU nodes (GPU operator
+   labels), ``production``'s ``tpu.remediation`` with ``dry_run`` false and
+   cooldown 0 (both printed), and ``ProbeRemediationPolicy`` fed reports
+   whose ``hbm_write`` is ``run_hbm_write_probe`` at 256 MiB with one element
+   of block 137 changed: ``bad_blocks`` must name exactly that block at byte
+   offset ``137 << 19`` (the plain block sums agree), ``fill`` and
+   ``blocksums`` must be launched, no PATCH before ``confirm_cycles``, then
+   the probe's node cordoned with production's taint and exactly one
+   TPU_REMEDIATION with an action whose evidence is the HBM finding;
+   ``python -m k8s_watcher_tpu_torch.remediate_ctl production status`` from
+   a config directory pointed at the mock lists exactly that node, ``release
+   NODE --no-dry-run`` restores it, and a clean cycle acts on nothing. It
+   prints each cycle's ms, the write GB/s, the confirming cycle to PATCH ms
+   and each CLI call's wall time.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -2055,8 +2074,13 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
 
     # 11. deletions while down, then a restart from the checkpoint and the WAL
     stub.delete_while_down([uid for _, _, uid in cluster.down_deletions])
+    # its ports are picked now, not when the first app started: a port picked
+    # minutes earlier can be a live connection's local port by the restart
+    restart_config = dataclasses.replace(
+        configs[1], serve=dataclasses.replace(configs[1].serve, port=free_port()),
+        watcher=dataclasses.replace(configs[1].watcher, status_port=free_port()))
     t_construct = time.monotonic()
-    app2, runner2, errors2 = run_app(configs[1])  # recovers the checkpoint and the WAL
+    app2, runner2, errors2 = run_app(restart_config)  # recovers the checkpoint and the WAL
     construct_s = time.monotonic() - t_construct
     t_restart = time.monotonic()
     runner2.start()
@@ -2068,6 +2092,8 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
 
     restarted = wait_until(lambda: errors2 or tombstones() >= gone, 120)
     restart_s = time.monotonic() - t_restart
+    if errors2:
+        fail(f"the restarted watcher raised: {errors2[0]!r}")
     with stub.lock:
         lease_restart = dict(stub.leases.get(lease_key, {}).get("spec") or {})
     identity2 = app2.elector.identity if app2.elector is not None else None
@@ -3429,6 +3455,253 @@ def dryrun_phase() -> None:
         fail(f"dryrun_multichip(128) gave {result}")
 
 
+# -- phase 15: the remediation loop --------------------------------------------
+
+DRILL_RANKS = 8
+REMEDIATION_NODE_INDEX = 42
+CORRUPT_BLOCK = 137
+
+
+def remediation_drill_phase() -> None:
+    """15a: ``python -m k8s_watcher_tpu_torch.chaos_remediate --cpu-ranks 8``
+    as a child on this host's CPUs: exit 0 with all eight stages passing."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    env["PYTHONPATH"] = REPO
+    argv = [sys.executable, "-m", "k8s_watcher_tpu_torch.chaos_remediate", "--cpu-ranks", str(DRILL_RANKS)]
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(argv, cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("the remediation drill did not finish in 600 s")
+    wall_s = time.monotonic() - t0
+    out = proc.stdout
+    start = out.find("{\n")
+    result = json.loads(out[start:out.rindex("}") + 1]) if start >= 0 else {}
+    print("remediation drill: " + json.dumps({
+        "argv": argv[1:], "rc": proc.returncode, "wall_s": wall_s, "host_cpus": os.cpu_count(),
+        "suspect_devices": (result.get("links_cycle1") or {}).get("suspect_devices"),
+        "actions": [(a["node"], a["applied"]) for a in result.get("actions") or []],
+        "node_after": result.get("node_after"), "released": result.get("released"),
+        "dcn_suspect_slices": (result.get("dcn_cycle1") or {}).get("dcn_suspect_slices"),
+        "dcn_decisions": [(a["node"], a["dry_run"]) for a in result.get("dcn_actions") or []],
+        "sink_payloads": [result.get("sink_remediation_payloads"), result.get("sink_dcn_payloads")],
+        "failures": result.get("failures"),
+    }))
+    if proc.returncode != 0 or result.get("failures") != [] or "remediation drill: PASS" not in out:
+        fail(f"the remediation drill exited {proc.returncode}:\n{out[-3000:]}\n{proc.stderr[-2000:]}")
+
+
+def remediation_phase(dev, name: str, power_limit: str, *, nodes: int = 2048, block: int = CORRUPT_BLOCK,
+                      hbm_bytes: int = 256 * MIB) -> None:
+    """15b: the policy on the card against the port's mock apiserver. It
+    holds phase 9's GPU nodes; the probe's node is one of them. Production's
+    ``tpu.remediation`` with ``dry_run`` false and cooldown 0; each cycle's
+    report carries the write probe at ``hbm_bytes`` with one element of block
+    ``block`` changed. The node must be PATCHed only by the confirming cycle,
+    the operator CLI must list it and release it, and a clean cycle must act
+    on nothing."""
+    import torch
+    import yaml
+
+    from k8s_watcher_tpu_torch.config import load_config
+    from k8s_watcher_tpu_torch.drill_common import start_sink
+    from k8s_watcher_tpu_torch.k8s.client import K8sClient
+    from k8s_watcher_tpu_torch.k8s.kubeconfig import K8sConnection
+    from k8s_watcher_tpu_torch.k8s.mock_server import MockApiServer, MockCluster
+    from k8s_watcher_tpu_torch.kernels import build
+    from k8s_watcher_tpu_torch.kernels import hbm as K
+    from k8s_watcher_tpu_torch.notify.client import ClusterApiClient
+    from k8s_watcher_tpu_torch.notify.dispatcher import Dispatcher
+    from k8s_watcher_tpu_torch.probe.device import enumerate_devices, host_identity_map
+    from k8s_watcher_tpu_torch.probe.hbm import run_hbm_write_probe
+    from k8s_watcher_tpu_torch.probe.report import ProbeReport
+    from k8s_watcher_tpu_torch.remediate import build_actuator, build_policy
+    from k8s_watcher_tpu_torch.remediate.policy import local_findings
+
+    node = f"gpu-node-{REMEDIATION_NODE_INDEX:04d}"
+    shipped = load_config("production", os.path.join(REPO, "config"))
+    if not (shipped.remediation_enabled and shipped.remediation_dry_run):
+        fail("the production settings no longer arm dry-run remediation")
+    tpu = dataclasses.replace(shipped, remediation_dry_run=False, remediation_cooldown_seconds=0.0)
+    cuts = {"remediation_dry_run": [shipped.remediation_dry_run, False],
+            "remediation_cooldown_seconds": [shipped.remediation_cooldown_seconds, 0.0]}
+    print("remediation settings: " + json.dumps({
+        "environment": "production", "cuts": cuts, "confirm_cycles": tpu.remediation_confirm_cycles,
+        "taint": [tpu.remediation_taint_key, tpu.remediation_taint_value, tpu.remediation_taint_effect],
+        "cordon": tpu.remediation_cordon, "max_actions_per_hour": tpu.remediation_max_actions_per_hour,
+        "max_quarantined_nodes": tpu.remediation_max_quarantined_nodes, "nodes": nodes, "node": node,
+        "hbm_bytes": hbm_bytes, "corrupt_block": block,
+    }))
+
+    cluster = MockCluster()
+    for i in range(nodes):
+        cluster.add_node(GpuCluster.node(f"gpu-node-{i:04d}", True, i + 1))
+    patches = []
+    patch_node = cluster.patch_node
+
+    def recording_patch(patched, body):
+        patches.append((time.monotonic(), patched, body))
+        return patch_node(patched, body)
+
+    cluster.patch_node = recording_patch
+    received, received_lock = [], threading.Lock()
+
+    def on_payload(body, _now):
+        with received_lock:
+            received.append(body)
+
+    sink = start_sink(on_payload)
+    old_node_name = os.environ.get("NODE_NAME")
+    os.environ["NODE_NAME"] = node
+    workdir = tempfile.TemporaryDirectory()
+    try:
+        with MockApiServer(cluster) as api:
+            client = K8sClient(K8sConnection(server=api.url), request_timeout=10.0)
+            dispatcher = Dispatcher(ClusterApiClient(f"http://127.0.0.1:{sink.server_address[1]}", API_KEY,
+                                                     10.0).update_pod_status, capacity=64, workers=1)
+            dispatcher.start()
+            actuator = build_actuator(client, tpu)
+            policy = build_policy(actuator, tpu, dispatcher=dispatcher, environment="production")
+            devices = enumerate_devices(dev, expected_platform=dev.type)
+            hosts = host_identity_map(dev)
+            seen = {}
+
+            def corrupt(y):
+                # one element of block ``block``; kept to hold the kernel's
+                # verdict against the plain block sums
+                y.view(-1, K.WRITE_BLOCK_ELEMS)[block, 4099] += 1e6
+                seen["buffer"] = y
+                return y
+
+            cycles = []
+
+            def cycle(hook):
+                t0 = time.monotonic()
+                probe = run_hbm_write_probe(hbm_bytes, device=dev, corrupt_hook=hook)
+                report = ProbeReport(environment="production", devices=devices, hbm_write=probe, hosts=hosts)
+                t_report = time.monotonic()
+                actions = policy.observe_report(report)
+                cycles.append({"ms": 1e3 * (time.monotonic() - t0), "write_gbps": probe.get("write_gbps"),
+                               "bad_blocks": probe.get("bad_blocks"), "actions": [a.to_dict() for a in actions]})
+                return probe, report, actions, t_report
+
+            build.reset_launch_counts()
+            confirm = tpu.remediation_confirm_cycles
+            findings, t_confirmed = [], None
+            for n in range(1, confirm + 1):
+                probe, report, actions, t_report = cycle(corrupt)
+                if probe.get("ok") is not False or probe.get("error"):
+                    fail(f"cycle {n}: the write probe missed the corruption: {probe}")
+                want = [{"block": block, "byte_offset": block << 19}]
+                got = [{k: b[k] for k in ("block", "byte_offset")} for b in probe["bad_blocks"]]
+                if got != want or K.WRITE_BYTES_PER_BLOCK != 1 << 19:
+                    fail(f"cycle {n}: bad_blocks {got}, not {want}")
+                plain = K.blocksums_plain(seen.pop("buffer")).double().view(-1).cpu()
+                expected = torch.arange(1, plain.numel() + 1, dtype=torch.float64) * K.WRITE_BLOCK_ELEMS
+                plain_bad = ((plain - expected).abs() > 1e-5 * expected).nonzero().view(-1).tolist()
+                if plain_bad != [block]:
+                    fail(f"cycle {n}: the plain block sums name {plain_bad}, the kernel {block}")
+                findings = local_findings(report)
+                if n < confirm and (actions or patches):
+                    fail(f"cycle {n} of {confirm} acted: {[a.to_dict() for a in actions]}, {len(patches)} PATCHes")
+                if n == confirm:
+                    t_confirmed = t_report
+            launches = build.launch_counts()
+            applied = [a for a in actions if a.ok and a.applied]
+            if len(applied) != 1 or applied[0].node != node:
+                fail(f"the confirming cycle did not quarantine {node}: {[a.to_dict() for a in actions]}")
+            if [patched for _, patched, _ in patches] != [node]:
+                fail(f"PATCHes: {[(patched, body) for _, patched, body in patches]}, not one for {node}")
+            patch_ms = 1e3 * (patches[0][0] - t_confirmed)
+            spec = cluster.get_node(node)["spec"]
+            taint = {"key": tpu.remediation_taint_key, "value": tpu.remediation_taint_value,
+                     "effect": tpu.remediation_taint_effect}
+            if spec.get("unschedulable") is not True or [
+                    {k: t.get(k) for k in ("key", "value", "effect")} for t in spec.get("taints") or []] != [taint]:
+                fail(f"{node} after the confirming cycle: {spec}")
+            if min(launches.get("fill", 0), launches.get("blocksums", 0)) <= 0:
+                fail(f"the remediation cycles launched {launches}")
+            dispatcher.drain(10.0)
+            with received_lock:
+                payloads = [p for p in received if p.get("event_type") == "TPU_REMEDIATION"]
+            acted = [p for p in payloads if p.get("actions")]
+            if len(acted) != 1 or acted[0]["implicated"] != {node: findings} or findings != [
+                    "hbm write probe: 1 HBM block(s) failed pattern readback"]:
+                fail(f"TPU_REMEDIATION payloads with actions: {acted}; local findings {findings}")
+            if any(set(p["implicated"]) != {node} for p in payloads):
+                fail(f"a payload implicated another node: {[p['implicated'] for p in payloads]}")
+
+            # the operator CLI, from a config directory pointed at the mock
+            config_dir = os.path.join(workdir.name, "config")
+            os.makedirs(config_dir)
+            kubeconfig = os.path.join(workdir.name, "kubeconfig")
+            with open(kubeconfig, "w") as fh:
+                json.dump({
+                    "apiVersion": "v1", "kind": "Config", "current-context": "mock",
+                    "clusters": [{"name": "mock", "cluster": {"server": api.url}}],
+                    "contexts": [{"name": "mock", "context": {"cluster": "mock", "user": "mock"}}],
+                    "users": [{"name": "mock", "user": {"token": "mock-token"}}],
+                }, fh)
+            with open(os.path.join(REPO, "config", "base.yaml")) as src, \
+                    open(os.path.join(config_dir, "base.yaml"), "w") as dst:
+                dst.write(src.read())
+            with open(os.path.join(REPO, "config", "production.yaml")) as fh:
+                overlay = yaml.safe_load(fh)
+            overlay["kubernetes"] = dict(overlay.get("kubernetes") or {}, use_incluster_config=False,
+                                         config_file=kubeconfig)
+            with open(os.path.join(config_dir, "production.yaml"), "w") as fh:
+                yaml.safe_dump(overlay, fh)
+            env = {k: v for k, v in os.environ.items() if k != "ENVIRONMENT"}
+            env.update(PYTHONPATH=REPO, PROD_CLUSTERAPI_API_KEY=API_KEY)
+
+            def ctl(*args):
+                t0 = time.monotonic()
+                proc = subprocess.run([sys.executable, "-m", "k8s_watcher_tpu_torch.remediate_ctl", "production",
+                                       *args], cwd=workdir.name, env=env, capture_output=True, text=True, timeout=120)
+                wall = time.monotonic() - t0
+                if proc.returncode != 0:
+                    fail(f"remediate_ctl {' '.join(args)} exited {proc.returncode}: {proc.stderr[-2000:]}")
+                return json.loads(proc.stdout), wall
+
+            status, status_s = ctl("status")
+            listed = [q["node"] for q in status["quarantined"]]
+            if listed != [node] or status["taint_key"] != tpu.remediation_taint_key:
+                fail(f"remediate_ctl status listed {listed} under {status['taint_key']}, not [{node}]")
+            released, release_s = ctl("release", node, "--no-dry-run")
+            spec = cluster.get_node(node)["spec"]
+            if not released["ok"] or released["dry_run"] or not released["applied"] or spec.get(
+                    "unschedulable") or spec.get("taints"):
+                fail(f"remediate_ctl release: {released}; {node} left with {spec}")
+            after, after_s = ctl("status")
+            if after["quarantined"]:
+                fail(f"remediate_ctl status after the release: {after}")
+
+            # one clean cycle acts on nothing
+            n_patches = len(patches)
+            probe, _, actions, _ = cycle(None)
+            if not probe.get("ok") or probe.get("bad_blocks") or actions or len(patches) != n_patches:
+                fail(f"the clean cycle: ok={probe.get('ok')}, bad {probe.get('bad_blocks')}, actions {actions}")
+            if policy.snapshot()["streaks"]:
+                fail(f"a clean cycle left streaks: {policy.snapshot()}")
+            dispatcher.stop()
+    finally:
+        if old_node_name is None:
+            os.environ.pop("NODE_NAME", None)
+        else:
+            os.environ["NODE_NAME"] = old_node_name
+        sink.shutdown()
+        sink.server_close()
+        workdir.cleanup()
+    print("remediation loop: " + json.dumps({
+        "node": node, "cycle_ms": [c["ms"] for c in cycles], "write_gbps": [c["write_gbps"] for c in cycles],
+        "bad_blocks": cycles[0]["bad_blocks"], "launches": launches, "confirm_cycles": confirm,
+        "confirming_cycle_to_patch_ms": patch_ms, "patch": patches[0][2], "payloads": len(payloads),
+        "evidence": findings, "cli_wall_s": {"status": status_s, "release": release_s, "status_after": after_s},
+        "device": name, "power_limit": power_limit,
+    }))
+
+
 def main() -> int:
     import torch
 
@@ -3820,6 +4093,11 @@ def main() -> int:
     graft_phase(torch, name, power_limit)
     daemonset_phase(name, power_limit)
     dryrun_phase()
+
+    # 15. the remediation loop: the drill on this host's CPU ranks, then a
+    # fault on the card quarantined and released over the port's apiserver
+    remediation_drill_phase()
+    remediation_phase(dev, name, power_limit)
 
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()

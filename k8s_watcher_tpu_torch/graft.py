@@ -116,8 +116,12 @@ def _dryrun_rank(rank: int, world: int) -> Dict[str, Any]:
         if per_slice.tolist() != [world / 2] * 2 or float(total) != world:
             raise RuntimeError(f"hierarchical sums {per_slice.tolist()} (total {float(total)}) over {world} ranks")
         n_sl = 4 if world % 4 == 0 and world >= 8 else 2
+        # iters=3 where the JAX package's one process takes 2: a pair's time
+        # is the min over iterations, and each pair here is a group of up to
+        # world/2 processes; at 128 ranks on 8 CPUs a healthy pair was
+        # stalled past the 50 ms floor in both of 2 iterations
         ms = run_multislice_probe(Mesh(dist.group.WORLD, slice_grid(world, world // n_sl, n_sl), cpu),
-                                  iters=2, inner_iters=2, pair_rtt_floor_ms=50.0)
+                                  iters=3, inner_iters=2, pair_rtt_floor_ms=50.0)
         if ms.error is not None or not ms.ok:
             raise RuntimeError(f"multislice probe: {ms.error or ms.suspect_pairs or ms.suspect_slices}")
         out["pairs"] = [p["name"] for p in ms.pair_rtts if p["owner"]]

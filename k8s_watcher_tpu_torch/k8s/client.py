@@ -35,7 +35,7 @@ import queue
 import socket
 import threading
 import time
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 from urllib.parse import urlencode, urlsplit
 
 from k8s_watcher_tpu_torch.http import new_connection, proxy_for
@@ -424,6 +424,30 @@ class K8sClient:
         return self._request(
             "PATCH", f"/api/v1/nodes/{name}", json_body=patch, content_type="application/merge-patch+json",
         )
+
+    def list_namespaces(self, limit: Optional[int] = None) -> List[str]:
+        params: Dict[str, Any] = {}
+        if limit:
+            params["limit"] = limit
+        body = self._request("GET", "/api/v1/namespaces", params)
+        return [(item.get("metadata") or {}).get("name", "") for item in body.get("items", [])]
+
+    # -- writes (the integration tier's create/delete primitives) ----------
+
+    def create_pod(self, namespace: str, pod: Dict[str, Any]) -> Dict[str, Any]:
+        """POST a Pod manifest; raises K8sConflictError if it exists."""
+        return self._request("POST", self._pods_path(namespace), json_body=pod)
+
+    def delete_pod(self, namespace: str, name: str) -> Dict[str, Any]:
+        """DELETE a pod (raises K8sNotFoundError if absent)."""
+        return self._request("DELETE", f"{self._pods_path(namespace)}/{name}")
+
+    def create_namespace(self, name: str) -> Dict[str, Any]:
+        body = {"apiVersion": "v1", "kind": "Namespace", "metadata": {"name": name}}
+        return self._request("POST", "/api/v1/namespaces", json_body=body)
+
+    def delete_namespace(self, name: str) -> Dict[str, Any]:
+        return self._request("DELETE", f"/api/v1/namespaces/{name}")
 
     # -- coordination.k8s.io/v1 Leases (leader election) -------------------
 

@@ -19,7 +19,9 @@ within 10 s of SIGINT. ``staging --cpu`` and ``production --cpu`` run the
 same way against a mock apiserver that serves Leases and nodes, with no plane
 switched off. A spawned ingest reader process, after the imports a
 production reader makes, holds neither torch nor jax, and neither does a
-spawned federation merge worker.
+spawned federation merge worker. The standalone mock apiserver
+(``python -m k8s_watcher_tpu_torch.mock_apiserver``) serves its seeded
+cluster and stops within 10 s of SIGINT.
 """
 
 import json
@@ -87,7 +89,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "analytics", "analytics.encode", "analytics.backend", "analytics.kernels",
                    "analytics.whatif", "analytics.plane", "trace.trace", "trace.federation",
                    "federate", "federate.client", "federate.merge", "federate.plane", "federate.fanin",
-                   "relay", "relay.plane", "graft", "chaos_probe", "parallel.cpu_ranks"):
+                   "relay", "relay.plane", "graft", "chaos_probe", "parallel.cpu_ranks",
+                   "k8s.mock_server", "faults.injection", "mock_apiserver", "remediate_ctl", "chaos_remediate",
+                   "drill_common"):
         assert f"k8s_watcher_tpu_torch.{module}" in result["modules"], module
 
 
@@ -494,3 +498,34 @@ def test_shipped_environment_entry_point_runs_on_the_cpu(tmp_path, environment):
     else:
         assert processes == 404 and lease["spec"]["holderIdentity"]
         assert cluster.get_lease("default", "k8s-watcher-tpu")["spec"]["holderIdentity"] == ""
+
+
+def test_mock_apiserver_serves_and_stops_on_sigint():
+    """``python -m k8s_watcher_tpu_torch.mock_apiserver PORT --churn``: the
+    seeded slice and nodes answer LISTs, and SIGINT stops it with exit 0
+    within 10 s."""
+    port = _free_port()
+    env = {k: v for k, v in os.environ.items() if k not in ("WORLD_SIZE", "MASTER_ADDR", "RANK", "LOCAL_RANK")}
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.Popen(
+        [sys.executable, "-u", "-m", "k8s_watcher_tpu_torch.mock_apiserver", str(port), "--churn"],
+        cwd=str(REPO), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    try:
+        listening = proc.stdout.readline().strip()
+        assert listening == f"mock k8s API server listening on http://127.0.0.1:{port} (Ctrl-C to stop)"
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/api/v1/pods", timeout=10) as resp:
+            pods = json.loads(resp.read())["items"]
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/api/v1/nodes", timeout=10) as resp:
+            nodes = json.loads(resp.read())["items"]
+        assert sorted(p["metadata"]["name"] for p in pods) == [f"train-{w}" for w in range(4)]
+        assert sorted(n["metadata"]["name"] for n in nodes) == ["tpu-node-0", "tpu-node-1"]
+        t0 = time.monotonic()
+        proc.send_signal(signal.SIGINT)
+        rc = proc.wait(timeout=10)
+        assert rc == 0 and time.monotonic() - t0 < 10
+        assert "stopping" in proc.stdout.read()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()

@@ -249,7 +249,11 @@ class TestFourSlicePairWalk:
             assert {s["name"] for s in got["suspect_pairs"]} == want_names
 
     def test_corrupt_rank_fails_its_pairs_checksums(self, ranks, ref_four):
-        want = ref_run_multislice_probe(ref_four, iters=2, inner_iters=4, fault=RefFaultSpec(corrupt_device_id=5))
+        # the coverage floor on both sides, as the port's walk has it: at the
+        # default 0.2 ms a healthy pair that host load stretches is flagged
+        # "slow" beside the corrupt ones
+        want = ref_run_multislice_probe(ref_four, iters=2, inner_iters=4, pair_rtt_floor_ms=COVERAGE_FLOOR_MS,
+                                        fault=RefFaultSpec(corrupt_device_id=5))
         assert want.suspect_slices == want.dcn_suspect_slices == [2]
         for r in ranks:
             got = r["four"]["corrupt5"]

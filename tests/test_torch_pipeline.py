@@ -215,7 +215,7 @@ def test_tracker_config_of_the_app_matches():
         ref.environment, ref.resource_key, ref.topology_label, ref.accelerator_label)
 
 
-# the reference's pipeline and slice scenarios, run through the port (the
-# churn generator is only a data source: it stays the JAX package's)
-globals().update(replayed_tests(replay("test_pipeline.py", keep=("k8s_watcher_tpu.faults",))))
+# the reference's pipeline and slice scenarios, run through the port (its
+# churn from the port's own ChurnGenerator, faults/injection.py)
+globals().update(replayed_tests(replay("test_pipeline.py")))
 globals().update(replayed_tests(replay("test_slices.py")))

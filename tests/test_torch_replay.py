@@ -65,3 +65,22 @@ def replayed_tests(module: types.ModuleType, only: Optional[Iterable[str]] = Non
         elif isinstance(obj, types.FunctionType) and name.startswith("test_"):
             out[f"test_port_{name[5:]}"] = obj
     return out
+
+
+def __getattr__(name: str):
+    """``CpuWatcherApp``: the port's ``WatcherApp`` with its probe agent and
+    analytics on the CPU unless the caller names a device (the port runs
+    them on a GPU by default), for replayed tests that build an app the JAX
+    package's way. Made on first use, so importing this helper imports no
+    torch."""
+    if name != "CpuWatcherApp":
+        raise AttributeError(name)
+    from k8s_watcher_tpu_torch.app import WatcherApp
+
+    class CpuWatcherApp(WatcherApp):
+        def __init__(self, *args, **kwargs):
+            kwargs.setdefault("device", "cpu")
+            super().__init__(*args, **kwargs)
+
+    globals()[name] = CpuWatcherApp
+    return CpuWatcherApp
