@@ -21,8 +21,12 @@ Phases, each fatal on failure (exit code 1, no result line):
    ``stop()``; every cycle healthy, one heartbeat per cycle, every kernel
    launched in every cycle; the first and the median steady-state cycle's
    ``duration_ms`` are printed;
-7. each kernel's time beside its bound, its plain version's and one
-   PyTorch library call's, at the main path's shapes;
+7. each kernel against its plain version again at phase 16a's shapes (the
+   soak's 128 MiB buffers and its passes), then each kernel's time beside
+   its bound, its plain version's and one PyTorch library call's, at the
+   main path's shapes and at the soak's; and the sweeps' rates at equal
+   bytes a call over buffers of 32 MiB to 1 GiB (``size sweep:``), to show
+   whether the soak's buffer is read or written from the 50 MB L2;
 8. the deployment loop: ``probe_agent.run_loop`` with the ``production``
    settings (notifier, status server, dry-run remediation), pointed at a
    receiver and a stub apiserver that the script serves on 127.0.0.1, for
@@ -142,7 +146,23 @@ Phases, each fatal on failure (exit code 1, no result line):
    a config directory pointed at the mock lists exactly that node, ``release
    NODE --no-dry-run`` restores it, and a clean cycle acts on nothing. It
    prints each cycle's ms, the write GB/s, the confirming cycle to PATCH ms
-   and each CLI call's wall time.
+   and each CLI call's wall time;
+16. the tooling on the card: (a) ``python -m k8s_watcher_tpu_torch.probe_soak
+   --minutes 1 --interval 3`` as a subprocess at the soak's settings (4096 x
+   128 bf16 GEMM chain as a CUDA graph, 128 MiB HBM buffers, 256 passes):
+   exit 0, at least 10 cycles, every one healthy, no trend alert, no band's
+   max above the card's peak x 1.05, and each kernel launched in every cycle
+   (counts through ``K8S_WATCHER_TPU_LAUNCH_COUNTS``); it prints the bands,
+   the GEMM's device time per call, the peak device memory and the median
+   cycle; (b) within phase 9, on its WAL before its directory goes: ``python
+   -m k8s_watcher_tpu_torch.history_replay --verify --analytics --scenarios``
+   (drain the local cluster, cordon 16 nodes) on the card and with
+   ``--device cpu``: deterministic, the cross-check ok, the two reports
+   equal; the replay and analytics seconds; (c) ``python -m
+   k8s_watcher_tpu_torch.acceptance_drill --cpu-ranks 8 --seconds 30`` on the
+   card's host CPUs: exit 0 with every gate (1k+ events/min, preemption and
+   reschedule, 90% of tracers, p50 under 1 s, no overflow, the corrupt slice
+   localized and decided in dry run, no node written).
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -282,6 +302,115 @@ def bound(bytes_moved: float, f32_ops: float):
     by_bytes = 1e3 * bytes_moved / HBM_BYTES_PER_S
     by_ops = 1e3 * f32_ops / F32_FLOPS_PER_S
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def compare_kernels(torch, K, dev, buf: int, repeats: int) -> dict:
+    """Each kernel against its plain version on the same inputs on the card,
+    at ``buf`` bytes and ``repeats`` passes: read_sweep exactly equal (random
+    integers, small enough that the largest total, and so every partial sum,
+    stays within 2**24 and is exact in f32), fill bitwise, blocksums within
+    rel 1e-5 and naming the same planted bad blocks. Fails on any mismatch;
+    returns the max abs errors by kernel."""
+    shape = f"{buf // MIB} MiB x {repeats} passes"
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = buf // K.BYTES_PER_BLOCK * K.BLOCK_ROWS
+    high = min(4, 2 ** 24 // (rows * repeats) + 1)
+    x = torch.randint(0, high, (rows, K.WIDTH), generator=gen, device=dev).to(torch.float32)
+    got, want = K.read_sweep(x, repeats), K.read_sweep_plain(x, repeats)
+    read_err = (got - want).abs().max().item()
+    if not torch.equal(got, want):
+        fail(f"read_sweep differs from read_sweep_plain at {shape} (max abs err {read_err})")
+    del x
+    num_blocks = buf // K.WRITE_BYTES_PER_BLOCK
+    seed3 = torch.full((1, 1), 3.0, device=dev)
+    got, want = K.fill(seed3, num_blocks, repeats), K.fill_plain(seed3, num_blocks, repeats)
+    fill_err = (got - want).abs().max().item()
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail(f"fill is not bitwise equal to fill_plain at {shape} (max abs err {fill_err})")
+    y = K.fill_plain(torch.zeros((1, 1), device=dev), num_blocks, 1)
+    corrupted = [5, num_blocks // 2 + 7, num_blocks - 1]
+    y.view(num_blocks, -1)[corrupted, 17] += 1e6
+    got, want = K.blocksums(y), K.blocksums_plain(y)
+    torch.cuda.synchronize()
+    sums_err = (got - want).abs().max().item()
+    if not torch.allclose(got, want, rtol=1e-5, atol=0.0):
+        fail(f"blocksums differs from blocksums_plain beyond rel 1e-5 at {shape} (max abs err {sums_err})")
+    expected = torch.arange(1, num_blocks + 1, device=dev, dtype=torch.float64) * K.WRITE_BLOCK_ELEMS
+
+    def bad(sums):
+        return torch.nonzero((sums.double().view(-1) - expected).abs() > 1e-5 * expected).view(-1).tolist()
+
+    if bad(got) != corrupted or bad(want) != corrupted:
+        fail(f"bad blocks at {shape}: kernel {bad(got)}, plain {bad(want)}, corrupted {corrupted}")
+    return {"read_sweep": read_err, "fill": fill_err, "blocksums": sums_err}
+
+
+def size_sweep(torch, K, dev, total: int, sizes_mib, rounds: int = 5) -> dict:
+    """The sweeps' rates at equal bytes moved (``total`` a call) over several
+    buffer sizes, the sizes interleaved in each of ``rounds`` rounds (CUDA-event
+    mean of 3 warm calls a reading). A buffer served partly from the 50 MB L2
+    reads or writes faster than the larger ones beyond their spread."""
+    bufs = {}
+    for mib in sizes_mib:
+        buf = mib * MIB
+        x = torch.ones((buf // K.BYTES_PER_BLOCK * K.BLOCK_ROWS, K.WIDTH), dtype=torch.float32, device=dev)
+        bufs[mib] = (x, buf // K.WRITE_BYTES_PER_BLOCK, total // buf)
+    seed3 = torch.full((1, 1), 3.0, device=dev)
+    gbps = {mib: {"read_sweep": [], "fill": []} for mib in sizes_mib}
+    for _ in range(rounds):
+        for mib, (x, num_blocks, repeats) in bufs.items():
+            for kname, fn in (("read_sweep", lambda: K.read_sweep(x, repeats)),
+                              ("fill", lambda: K.fill(seed3, num_blocks, repeats))):
+                gbps[mib][kname].append(total / cuda_ms(torch, fn, warm=1, n=3) / 1e6)
+    del bufs
+    rows = [{"mib": mib, "repeats": total // (mib * MIB),
+             **{k: {"median": statistics.median(v), "min": min(v), "max": max(v)} for k, v in kinds.items()}}
+            for mib, kinds in gbps.items()]
+    return {"total_bytes": total, "rounds": rounds, "rows": rows}
+
+
+def kernel_timings(torch, K, dev, buf: int, repeats: int) -> list:
+    """Each kernel's time at ``buf`` bytes and ``repeats`` passes beside its
+    bound, its plain version's and one PyTorch library call's (CUDA-event
+    means over warm calls: 5 kernel, 3 plain and library calls for the
+    sweeps; 50 and 25 for the block sums)."""
+    rows = buf // K.BYTES_PER_BLOCK * K.BLOCK_ROWS
+    num_blocks = buf // K.WRITE_BYTES_PER_BLOCK
+    seed3 = torch.full((1, 1), 3.0, device=dev)
+    x = torch.ones((rows, K.WIDTH), dtype=torch.float32, device=dev)
+    y = K.fill_plain(torch.zeros((1, 1), device=dev), num_blocks, 1)
+
+    def library_read():
+        for _ in range(repeats):
+            x.sum(0, keepdim=True)
+
+    column = torch.arange(1, num_blocks + 1, dtype=torch.float32, device=dev)[:, None] + 3.0
+    out = torch.empty((num_blocks, K.WRITE_BLOCK_ELEMS), dtype=torch.float32, device=dev)
+
+    def library_fill():
+        for _ in range(repeats):
+            out.copy_(column.expand(num_blocks, K.WRITE_BLOCK_ELEMS))
+
+    specs = [
+        ("read_sweep", "k8s_watcher_tpu/probe/hbm.py:74 (_reduce_kernel; pallas_call :95)",
+         lambda: K.read_sweep(x, repeats), lambda: K.read_sweep_plain(x, repeats), library_read,
+         bound(buf * repeats + 4 * K.WIDTH, buf // 4 * repeats), 5),
+        ("fill", "k8s_watcher_tpu/probe/hbm.py:107 (_fill_kernel; pallas_call :135)",
+         lambda: K.fill(seed3, num_blocks, repeats), lambda: K.fill_plain(seed3, num_blocks, repeats),
+         library_fill, bound(buf * repeats + 4, buf // 4 * repeats), 5),
+        ("blocksums", "k8s_watcher_tpu/probe/hbm.py:117 (_blocksum_kernel; pallas_call :145)",
+         lambda: K.blocksums(y), lambda: K.blocksums_plain(y),
+         lambda: y.view(num_blocks, -1).sum(1), bound(buf + 4 * num_blocks, buf // 4), 50),
+    ]
+    out_rows = []
+    for kname, replaces, kernel_fn, plain_fn, library_fn, (bound_ms, bound_by), n in specs:
+        out_rows.append({
+            "name": kname, "replaces": replaces, "ms": cuda_ms(torch, kernel_fn, n=n),
+            "plain_ms": cuda_ms(torch, plain_fn, n=max(3, n // 2)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": cuda_ms(torch, library_fn, n=max(3, n // 2)),
+        })
+    return out_rows
 
 
 # -- phase 9: the watcher on a seeded GPU cluster --------------------------------
@@ -1575,7 +1704,8 @@ class NodeChurn(threading.Thread):
                 event.set()
 
 
-def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: int, quiet: dict, **sizes) -> dict:
+def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: int, quiet: dict, wal_hook=None,
+                  **sizes) -> dict:
     """Phase 9: ``python -m k8s_watcher_tpu_torch production``'s ``WatcherApp``
     on the card against a seeded cluster of 2,048 GPU nodes and 50,000 pods
     served by ``ClusterStub``, through 60,000 watch events of churn, with
@@ -1596,7 +1726,9 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
     every slice transition the node events cause in ``fold_production`` (the
     slices of a NotReady or deleted node going Degraded, those of a node back
     Ready going Ready) must be among the POSTed ``SLICE_PHASE_CHANGE``
-    payloads."""
+    payloads. ``wal_hook(wal_dir, nodes)`` runs once the restarted app has
+    stopped, before the WAL's directory goes (``nodes``: those of the GPU
+    workers)."""
     import torch
 
     from k8s_watcher_tpu_torch.analytics import parse_scenarios, python_reference_verdicts
@@ -2112,6 +2244,8 @@ def watcher_phase(dev, name: str, power_limit: str, bare_loop_ms: list, seed: in
     for server in (apiserver, *receivers):
         server.shutdown()
         server.server_close()
+    if wal_hook is not None and not runner2.is_alive():
+        wal_hook(os.path.join(workdir.name, "history"), nodes)
     workdir.cleanup()
     gc.unfreeze()
     if errors2 or runner2.is_alive():
@@ -3702,6 +3836,186 @@ def remediation_phase(dev, name: str, power_limit: str, *, nodes: int = 2048, bl
     }))
 
 
+# -- phase 16: the soak, the offline replay and the acceptance drill -------------
+
+SOAK_MINUTES = 1.0
+SOAK_INTERVAL_S = 3.0
+SOAK_CYCLES = 10
+ACCEPT_SECONDS = 30.0
+CORDONED_NODES = 16
+_RANK_ENV = ("WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE")
+
+
+def _child_env(**extra) -> dict:
+    env = {k: v for k, v in os.environ.items() if k not in _RANK_ENV}
+    env.update(PYTHONPATH=REPO, **extra)
+    return env
+
+
+def soak_phase(name: str, power_limit: str) -> dict:
+    """16a: ``python -m k8s_watcher_tpu_torch.probe_soak --minutes 1 --interval
+    3`` as a subprocess on the card, at the soak's settings (4096 x 128 GEMM
+    chain, 128 MiB HBM buffers, 256 passes): exit 0, at least 10 cycles, all
+    healthy, no trend alert, no band's max above the card's peak x 1.05, and
+    every kernel launched in every cycle. Returns the kernels' launches over
+    the soak, read through ``K8S_WATCHER_TPU_LAUNCH_COUNTS``."""
+    work = tempfile.TemporaryDirectory()
+    out = os.path.join(work.name, "soak.json")
+    argv = [sys.executable, "-m", "k8s_watcher_tpu_torch.probe_soak", "--minutes", str(SOAK_MINUTES),
+            "--interval", str(SOAK_INTERVAL_S), "--out", out]
+    samples, done = [], threading.Event()
+
+    def sample_clocks():
+        # the SM clock, the power draw and the temperature beside the soak
+        while not done.wait(2.0):
+            smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+                                  "--format=csv,noheader,nounits"], capture_output=True, text=True, timeout=30)
+            if smi.returncode == 0:
+                samples.append([float(v) for v in smi.stdout.strip().splitlines()[0].split(",")])
+
+    sampler = threading.Thread(target=sample_clocks, daemon=True)
+    sampler.start()
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(argv, cwd=work.name, env=_child_env(K8S_WATCHER_TPU_LAUNCH_COUNTS=os.path.join(
+            work.name, "launches")), capture_output=True, text=True, timeout=300)
+    except subprocess.TimeoutExpired:
+        fail("the soak did not finish in 300 s")
+    finally:
+        done.set()
+        sampler.join()
+    wall_s = time.monotonic() - t0
+    clocks = {key: {"min": min(col), "median": statistics.median(col), "max": max(col)}
+              for key, col in zip(("sm_mhz", "power_w", "temperature_c"), zip(*samples))} if samples else {}
+    if proc.returncode != 0 or not os.path.exists(out):
+        fail(f"the soak exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-2000:]}")
+    with open(out) as fh:
+        artifact = json.load(fh)
+    with open(os.path.join(work.name, "launches.0")) as fh:
+        launches = json.load(fh)
+    on_device = json.loads(next(line for line in proc.stdout.splitlines()
+                                if line.startswith("soak device: "))[len("soak device: "):])
+    work.cleanup()
+    bands = artifact["bands"]
+    gemm_ms = [c["gemm_ms_median"] for c in on_device["cycles"]]
+    print("soak: " + json.dumps({
+        "argv": argv[1:-2], "wall_s": wall_s, "cycles": artifact["cycles_completed"],
+        "healthy": artifact["cycles_healthy"], "heartbeats": artifact["heartbeats"],
+        "trend_alerts": artifact["trend_alerts_raised"], "bands": bands, "launches": launches,
+        "launches_per_cycle": [c["launches"] for c in on_device["cycles"]],
+        "gemm_ms_per_call_median": statistics.median(gemm_ms), "gemm_ms_per_call": gemm_ms,
+        "max_memory_allocated": on_device["max_memory_allocated"],
+        "cycle_duration_ms_median": bands["cycle_duration_ms"].get("median"),
+        "clocks": clocks, "trend_state": artifact["trend_state"], "device": name, "power_limit": power_limit,
+    }))
+    if not artifact["ok"] or artifact["cycles_completed"] < SOAK_CYCLES or artifact["trend_alerts_raised"] or \
+            artifact["cycles_healthy"] != artifact["cycles_completed"]:
+        fail(f"the soak: {artifact['cycles_healthy']} of {artifact['cycles_completed']} cycles healthy, "
+             f"{artifact['trend_alerts_raised']} trend alerts, ok {artifact['ok']}")
+    peaks = {"mxu_tflops_median": BF16_TFLOPS * PEAK_SLACK, "hbm_read_gbps": HBM_BYTES_PER_S / 1e9 * PEAK_SLACK,
+             "hbm_write_gbps": HBM_BYTES_PER_S / 1e9 * PEAK_SLACK}
+    for key, peak in peaks.items():
+        if not bands[key] or bands[key]["max"] > peak:
+            fail(f"the soak's {key} band {bands[key]} is above the card's peak x {PEAK_SLACK} ({peak})")
+    for n, cycle in enumerate(on_device["cycles"]):
+        if min(cycle["launches"].values()) <= 0:
+            fail(f"soak cycle {n} launched {cycle['launches']}")
+    return launches
+
+
+def replay_phase(wal_dir: str, nodes: list, seed: int, name: str, power_limit: str) -> None:
+    """16b: ``python -m k8s_watcher_tpu_torch.history_replay --wal <phase 9's
+    WAL> --verify --analytics --scenarios [drain the local cluster, cordon 16
+    nodes]`` on the card and with ``--device cpu``, side by side: both exit
+    0, ``verified_deterministic``, ``crosscheck.ok``, and the card's report
+    equal to the CPU's. Then one replay and one analytics pass in this
+    process, timed."""
+    from k8s_watcher_tpu_torch.analytics import FleetKernels, parse_scenarios, resolve_backend, verdicts_from_objects
+    from k8s_watcher_tpu_torch.history.replay import replay_wal
+
+    raw = [{"kind": "drain_cluster", "cluster": ""},
+           {"kind": "cordon_nodes", "nodes": random.Random(seed + 16).sample(nodes, CORDONED_NODES)}]
+    argv = [sys.executable, "-m", "k8s_watcher_tpu_torch.history_replay", "--wal", wal_dir, "--verify",
+            "--analytics", "--scenarios", json.dumps(raw)]
+    t0 = time.monotonic()
+    procs = {dev: subprocess.Popen(argv + (["--device", "cpu"] if dev == "cpu" else []), cwd=REPO, env=_child_env(),
+                                   stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for dev in ("cuda", "cpu")}
+    outs, walls = {}, {}
+    for dev, proc in procs.items():
+        try:
+            outs[dev] = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            for p in procs.values():
+                p.kill()
+            fail(f"the offline replay on {dev} did not finish in 300 s")
+        walls[dev] = time.monotonic() - t0
+        if proc.returncode != 0:
+            fail(f"the offline replay on {dev} exited {proc.returncode}:\n{outs[dev][0][-2000:]}\n{outs[dev][1][-2000:]}")
+    reports = {dev: json.loads(out) for dev, (out, _) in outs.items()}
+    card = reports["cuda"]
+    t0 = time.monotonic()
+    terminal = replay_wal(wal_dir)
+    replay_s = time.monotonic() - t0
+    kernels = FleetKernels(resolve_backend("auto", device="cuda"))
+    scenarios = parse_scenarios(raw, max_scenarios=64)
+    verdicts_from_objects(terminal.objects, scenarios, kernels=kernels)  # warm
+    t0 = time.monotonic()
+    again = verdicts_from_objects(terminal.objects, scenarios, kernels=kernels)
+    analytics_s = time.monotonic() - t0
+    print("offline replay: " + json.dumps({
+        "wal_bytes": sum(os.path.getsize(os.path.join(wal_dir, f)) for f in os.listdir(wal_dir)),
+        "rv": card["rv"], "objects": card["objects"], "deltas_applied": card["deltas_applied"],
+        "segments": card["segments"], "verified_deterministic": card.get("verified_deterministic"),
+        "crosscheck": card["analytics"]["crosscheck"]["ok"], "card_equals_cpu": card == reports["cpu"],
+        "baseline": card["analytics"]["baseline"],
+        "scenarios": [{k: v for k, v in row.items() if k != "slices_losing_quorum"}
+                      | {"slices_losing_quorum": len(row["slices_losing_quorum"])}
+                      for row in card["analytics"]["scenarios"]],
+        "cli_wall_s": walls, "replay_s": replay_s, "analytics_s": analytics_s,
+        "device": name, "power_limit": power_limit,
+    }))
+    if card.get("verified_deterministic") is not True or not card["analytics"]["crosscheck"]["ok"]:
+        fail(f"the offline replay on the card: {card}")
+    if card != reports["cpu"]:
+        fail(f"the card's offline replay differs from the CPU's:\n{card}\n{reports['cpu']}")
+    if again != card["analytics"]:
+        fail("the in-process analytics pass differs from the CLI's report")
+
+
+def acceptance_phase() -> None:
+    """16c: ``python -m k8s_watcher_tpu_torch.acceptance_drill --cpu-ranks 8
+    --seconds 30`` as a child on this host's CPUs: exit 0 with every gate."""
+    work = tempfile.TemporaryDirectory()
+    out = os.path.join(work.name, "acceptance.json")
+    argv = [sys.executable, "-m", "k8s_watcher_tpu_torch.acceptance_drill", "--cpu-ranks", str(DRILL_RANKS),
+            "--seconds", str(ACCEPT_SECONDS), "--out", out]
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(argv, cwd=REPO, env=_child_env(), capture_output=True, text=True, timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("the acceptance drill did not finish in 600 s")
+    wall_s = time.monotonic() - t0
+    result = {}
+    if os.path.exists(out):
+        with open(out) as fh:
+            result = json.load(fh)
+    work.cleanup()
+    probe = result.get("probe") or {}
+    print("acceptance drill: " + json.dumps({
+        "argv": argv[1:-2], "rc": proc.returncode, "wall_s": wall_s, "host_cpus": os.cpu_count(),
+        "realized_events_per_min": result.get("realized_events_per_min"), "latency_ms": result.get("latency_ms"),
+        "tracers": result.get("tracers"), "preemptions": result.get("preemptions"),
+        "reschedules": result.get("reschedules"), "overflow_drops": result.get("overflow_drops"),
+        "probe_cycles": probe.get("cycles"), "dcn_suspects": probe.get("dcn_suspects_per_cycle"),
+        "decisions": len(probe.get("decisions") or []),
+        "first_decision": next(((d["node"], d["dry_run"], d["applied"]) for d in probe.get("decisions") or []), None),
+        "failures": result.get("failures"),
+    }))
+    if proc.returncode != 0 or result.get("failures") != [] or "acceptance drill: PASS" not in proc.stdout:
+        fail(f"the acceptance drill exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-2000:]}")
+
+
 def main() -> int:
     import torch
 
@@ -3709,11 +4023,12 @@ def main() -> int:
         fail("torch.cuda.is_available() is False: this smoke test needs a CUDA GPU")
     sys.path.insert(0, REPO)
     try:
-        from k8s_watcher_tpu_torch import probe_agent
+        from k8s_watcher_tpu_torch import probe_agent, probe_soak
         from k8s_watcher_tpu_torch.config import load_agent_config, load_config
         from k8s_watcher_tpu_torch.kernels import build
         from k8s_watcher_tpu_torch.kernels import hbm as K
         from k8s_watcher_tpu_torch.probe.agent import ProbeAgent
+        from k8s_watcher_tpu_torch.probe.hbm import _pick_repeats
         from k8s_watcher_tpu_torch.probe.ici import mxu_chain
     except ImportError as exc:
         fail(f"the port's package is not importable beside this script: {exc}")
@@ -3741,37 +4056,9 @@ def main() -> int:
     print(build.build_log.strip() or "(library reused: no build output)")
 
     # 3. kernels against their plain versions at 256 MiB
-    gen = torch.Generator(device=dev).manual_seed(0)
-    rows = 256 * MIB // K.BYTES_PER_BLOCK * K.BLOCK_ROWS
-    x = torch.randint(0, 4, (rows, K.WIDTH), generator=gen, device=dev).to(torch.float32)
-    got, want = K.read_sweep(x, 2), K.read_sweep_plain(x, 2)
-    read_err = (got - want).abs().max().item()
-    if not torch.equal(got, want):
-        fail(f"read_sweep differs from read_sweep_plain (max abs err {read_err})")
-    num_blocks = 256 * MIB // K.WRITE_BYTES_PER_BLOCK
-    seed3 = torch.full((1, 1), 3.0, device=dev)
-    got, want = K.fill(seed3, num_blocks, 2), K.fill_plain(seed3, num_blocks, 2)
-    fill_err = (got - want).abs().max().item()
-    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-        fail(f"fill is not bitwise equal to fill_plain (max abs err {fill_err})")
-    y = K.fill_plain(torch.zeros((1, 1), device=dev), num_blocks, 1)
-    corrupted = [5, 200, num_blocks - 1]
-    y.view(num_blocks, -1)[corrupted, 17] += 1e6
-    got, want = K.blocksums(y), K.blocksums_plain(y)
-    torch.cuda.synchronize()
-    sums_err = (got - want).abs().max().item()
-    if not torch.allclose(got, want, rtol=1e-5, atol=0.0):
-        fail(f"blocksums differs from blocksums_plain beyond rel 1e-5 (max abs err {sums_err})")
-    expected = torch.arange(1, num_blocks + 1, device=dev, dtype=torch.float64) * K.WRITE_BLOCK_ELEMS
-
-    def bad(sums):
-        return torch.nonzero((sums.double().view(-1) - expected).abs() > 1e-5 * expected).view(-1).tolist()
-
-    if bad(got) != corrupted or bad(want) != corrupted:
-        fail(f"bad blocks: kernel {bad(got)}, plain {bad(want)}, corrupted {corrupted}")
+    kernel_errors = compare_kernels(torch, K, dev, 256 * MIB, 2)
     print(f"kernels match plain versions at 256 MiB: read_sweep exact, fill bitwise, "
-          f"blocksums max abs err {sums_err} with bad blocks {corrupted}")
-    del x, got, want, y
+          f"blocksums max abs err {kernel_errors['blocksums']} with the planted bad blocks named")
 
     # 4. the main path: the production settings as they are
     config = load_config("production", os.path.join(REPO, "config"))
@@ -3891,50 +4178,33 @@ def main() -> int:
         "device": name, "power_limit": power_limit,
     }))
 
-    # 7. times at the main path's shapes
-    repeats = hbm["repeats"]
-    x = torch.ones((rows, K.WIDTH), dtype=torch.float32, device=dev)
-    y = K.fill_plain(torch.zeros((1, 1), device=dev), num_blocks, 1)
-    buf = 256 * MIB
-
-    def library_read():
-        for _ in range(repeats):
-            x.sum(0, keepdim=True)
-
-    column = torch.arange(1, num_blocks + 1, dtype=torch.float32, device=dev)[:, None] + 3.0
-    out = torch.empty((num_blocks, K.WRITE_BLOCK_ELEMS), dtype=torch.float32, device=dev)
-
-    def library_fill():
-        for _ in range(repeats):
-            out.copy_(column.expand(num_blocks, K.WRITE_BLOCK_ELEMS))
-
-    specs = [
-        ("read_sweep", "k8s_watcher_tpu/probe/hbm.py:74 (_reduce_kernel; pallas_call :95)",
-         lambda: K.read_sweep(x, repeats), lambda: K.read_sweep_plain(x, repeats), library_read,
-         bound(buf * repeats + 4 * K.WIDTH, buf // 4 * repeats), read_err, 5),
-        ("fill", "k8s_watcher_tpu/probe/hbm.py:107 (_fill_kernel; pallas_call :135)",
-         lambda: K.fill(seed3, num_blocks, repeats), lambda: K.fill_plain(seed3, num_blocks, repeats),
-         library_fill, bound(buf * repeats + 4, buf // 4 * repeats), fill_err, 5),
-        ("blocksums", "k8s_watcher_tpu/probe/hbm.py:117 (_blocksum_kernel; pallas_call :145)",
-         lambda: K.blocksums(y), lambda: K.blocksums_plain(y),
-         lambda: y.view(num_blocks, -1).sum(1), bound(buf + 4 * num_blocks, buf // 4), sums_err, 50),
-    ]
+    # 7. times at the main path's shapes, then at the soak's (phase 16a)
+    soak_bytes = probe_soak.soak_config(SOAK_INTERVAL_S).probe_hbm_bytes
+    soak_repeats = _pick_repeats(soak_bytes)
+    soak_errors = compare_kernels(torch, K, dev, soak_bytes, soak_repeats)
+    print(f"kernels match plain versions at the soak's {soak_bytes // MIB} MiB x {soak_repeats} passes: "
+          f"{json.dumps(soak_errors)}")
     kernels = []
-    for kname, replaces, kernel_fn, plain_fn, library_fn, (bound_ms, bound_by), err, n in specs:
-        kernel_ms = cuda_ms(torch, kernel_fn, n=n)
-        plain_ms = cuda_ms(torch, plain_fn, n=max(3, n // 2))
-        library_ms = cuda_ms(torch, library_fn, n=max(3, n // 2))
+    for row in kernel_timings(torch, K, dev, 256 * MIB, hbm["repeats"]):
         print(json.dumps({
-            "kernel": kname, "kernel_ms": kernel_ms, "bound_ms": bound_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "launches_per_cycle": launches[kname],
+            "kernel": row["name"], "kernel_ms": row["ms"], "bound_ms": row["bound_ms"], "plain_ms": row["plain_ms"],
+            "library_ms": row["library_ms"], "launches_per_cycle": launches[row["name"]],
             "device": name, "power_limit": power_limit,
         }))
-        kernels.append({
-            "name": kname, "route": "cuda", "source": SOURCE, "replaces": replaces,
-            "launches": launches[kname], "max_abs_err": err, "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms,
-        })
+        kernels.append(dict(row, route="cuda", source=SOURCE, launches=launches[row["name"]],
+                            max_abs_err=max(kernel_errors[row["name"]], soak_errors[row["name"]])))
+    for row in kernel_timings(torch, K, dev, soak_bytes, soak_repeats):
+        print("soak shape: " + json.dumps({**row, "bytes": soak_bytes, "repeats": soak_repeats,
+                                           "max_abs_err": soak_errors[row["name"]], "device": name,
+                                           "power_limit": power_limit}))
+    # whether the soak's buffer is served from L2: its rate beside larger
+    # buffers' at the same bytes a call (a 32 MiB buffer fits in L2 whole)
+    sweep = size_sweep(torch, K, dev, soak_bytes * soak_repeats, (32, soak_bytes // MIB, 256, 512, 1024))
+    larger = [r for r in sweep["rows"] if r["mib"] * MIB > soak_bytes]
+    soak_row = next(r for r in sweep["rows"] if r["mib"] * MIB == soak_bytes)
+    sweep["soak_faster_beyond_spread"] = {
+        k: soak_row[k]["min"] > max(r[k]["max"] for r in larger) for k in ("read_sweep", "fill")}
+    print("size sweep: " + json.dumps({**sweep, "device": name, "power_limit": power_limit}))
 
     # 8. the deployment loop, as the DaemonSet runs it, against local servers
     receiver, apiserver = serve("Receiver"), serve("ApiServer")
@@ -4064,7 +4334,10 @@ def main() -> int:
     seed = int(sys.argv[sys.argv.index("--seed") + 1]) if "--seed" in sys.argv else 0
     quiet = {"mxu_tflops": mxu["tflops_median"], "hbm_read_gbps": hbm["read_gbps"],
              "hbm_write_gbps": hbm_w["write_gbps"]}
-    watcher_launches = watcher_phase(dev, name, power_limit, [c["duration_ms"] for c in cycles], seed, quiet)
+    # 16b runs inside it, on its WAL: the offline replay with analytics
+    watcher_launches = watcher_phase(dev, name, power_limit, [c["duration_ms"] for c in cycles], seed, quiet,
+                                     wal_hook=lambda wal_dir, nodes: replay_phase(wal_dir, nodes, seed, name,
+                                                                                  power_limit))
     for kernel in kernels:
         if watcher_launches[kernel["name"]] <= 0:
             fail(f"kernel {kernel['name']} was not launched by the watcher's run")
@@ -4098,6 +4371,13 @@ def main() -> int:
     # fault on the card quarantined and released over the port's apiserver
     remediation_drill_phase()
     remediation_phase(dev, name, power_limit)
+
+    # 16. the agent soak on the card (16b ran within phase 9), then the
+    # acceptance drill on this host's CPU ranks
+    soak_launches = soak_phase(name, power_limit)
+    for kernel in kernels:
+        kernel["path_launches"] = {"16a": soak_launches[kernel["name"]]}
+    acceptance_phase()
 
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()

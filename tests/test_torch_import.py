@@ -21,7 +21,9 @@ switched off. A spawned ingest reader process, after the imports a
 production reader makes, holds neither torch nor jax, and neither does a
 spawned federation merge worker. The standalone mock apiserver
 (``python -m k8s_watcher_tpu_torch.mock_apiserver``) serves its seeded
-cluster and stops within 10 s of SIGINT.
+cluster and stops within 10 s of SIGINT. The soak, the offline replay's
+analytics and the acceptance drill, asked for the card without CUDA, exit
+non-zero with an error naming CUDA.
 """
 
 import json
@@ -91,8 +93,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "federate", "federate.client", "federate.merge", "federate.plane", "federate.fanin",
                    "relay", "relay.plane", "graft", "chaos_probe", "parallel.cpu_ranks",
                    "k8s.mock_server", "faults.injection", "mock_apiserver", "remediate_ctl", "chaos_remediate",
-                   "drill_common"):
+                   "drill_common", "probe_soak", "history_replay", "acceptance_drill"):
         assert f"k8s_watcher_tpu_torch.{module}" in result["modules"], module
+
+
+@pytest.mark.parametrize("module, argv", [
+    ("probe_soak", ["--minutes", "0.01"]),
+    ("history_replay", ["--analytics"]),
+    ("acceptance_drill", ["--seconds", "1"]),
+])
+def test_entry_point_without_cuda_or_its_cpu_flag_fails_naming_cuda(module, argv, tmp_path):
+    """Asked for the card where there is none, each entry point exits
+    non-zero with an error naming CUDA, and writes nothing."""
+    out = tmp_path / "out.json"
+    argv = argv + (["--wal", str(tmp_path)] if module == "history_replay" else ["--out", str(out)])
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "RANK", "LOCAL_RANK", "LOCAL_WORLD_SIZE")}
+    env.update(PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-m", f"k8s_watcher_tpu_torch.{module}", *argv], cwd=str(tmp_path),
+                          env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode != 0 and "RuntimeError" in proc.stderr, proc.stderr[-2000:]
+    assert "torch.cuda.is_available() is False" in proc.stderr
+    assert not out.exists() and proc.stdout.strip() == ""
 
 
 class _Receiver(BaseHTTPRequestHandler):
