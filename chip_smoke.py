@@ -162,7 +162,19 @@ Phases, each fatal on failure (exit code 1, no result line):
    k8s_watcher_tpu_torch.acceptance_drill --cpu-ranks 8 --seconds 30`` on the
    card's host CPUs: exit 0 with every gate (1k+ events/min, preemption and
    reschedule, 90% of tracers, p50 under 1 s, no overflow, the corrupt slice
-   localized and decided in dry run, no node written).
+   localized and decided in dry run, no node written);
+17. the JAX package's tooling, as the port's twins, each a subprocess on the
+   card and the card's host: ``check_connection`` and ``check_mock`` against
+   the port's mock apiserver on a free port (exit 0); the eleven smoke drills
+   (``python -m k8s_watcher_tpu_torch.<name>_smoke``: serve, history,
+   analytics, columnar at 50,000 pods, health, obs, trace, ingest,
+   federation, fan-in, relay), one after another, their apps' analytics on the
+   card: each must exit 0 with ``ok: true`` and its artifact's ``checks``
+   exactly the names the twin declares, every one true; then
+   ``integration_tier --backend auto`` (the mock when the host has no kind or
+   kube-apiserver): ``ok``. It prints one line per twin with its wall seconds
+   and its checks, the analytics' kernel and request times of the analytics
+   and columnar drills, and the columnar drill's memory and body size.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``.
 """
@@ -4016,6 +4028,97 @@ def acceptance_phase() -> None:
         fail(f"the acceptance drill exited {proc.returncode}:\n{proc.stdout[-3000:]}\n{proc.stderr[-2000:]}")
 
 
+# -- phase 17: the smoke drills, the connection checks and the integration tier --
+
+#: each smoke drill's twin and its time limit on the card's host, in the
+#: order they run (one after another: their timing-bound checks share the
+#: host's CPUs)
+SMOKE_TIMEOUT_S = {
+    "serve_smoke": 120, "history_smoke": 120, "analytics_smoke": 120, "columnar_smoke": 300,
+    "health_smoke": 300, "obs_smoke": 240, "trace_smoke": 180, "ingest_smoke": 240,
+    "federation_smoke": 240, "fanin_smoke": 240, "relay_smoke": 240,
+}
+
+
+def _histogram_ms(histogram: dict) -> dict:
+    return {k: histogram.get(k) for k in ("count", "mean_ms", "p50_ms", "p99_ms", "max_ms")}
+
+
+def _run_twin(argv: list, timeout_s: float) -> tuple:
+    t0 = time.monotonic()
+    try:
+        proc = subprocess.run(argv, cwd=REPO, env=_child_env(), capture_output=True, text=True, timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        fail(f"{' '.join(argv[1:])} did not finish in {timeout_s} s")
+    return proc, time.monotonic() - t0
+
+
+def smoke_phase(name: str, power_limit: str) -> None:
+    """17: the connection checks against the port's mock apiserver, each
+    smoke drill's twin on the card (``--out`` in a temporary directory), then
+    the integration tier with ``--backend auto``. Every twin must exit 0 with
+    ``ok: true`` and exactly its declared checks, all true."""
+    import importlib
+    from pathlib import Path
+
+    from k8s_watcher_tpu_torch.k8s.mock_server import MockApiServer
+    from k8s_watcher_tpu_torch.smoke_common import write_kubeconfig
+    from k8s_watcher_tpu_torch.watch.fake import build_pod
+
+    print(f"smoke twins on: {name}, {power_limit}")
+    work = tempfile.TemporaryDirectory()
+    with MockApiServer() as server:
+        for i in range(3):
+            server.cluster.add_pod(build_pod(f"check-pod-{i}", "default", uid=f"check-uid-{i}", tpu_chips=4))
+        kubeconfig = write_kubeconfig(Path(work.name) / "kubeconfig.json", server.url)
+        for module in ("check_connection", "check_mock"):
+            proc, wall_s = _run_twin([sys.executable, "-m", f"k8s_watcher_tpu_torch.{module}", kubeconfig], 120)
+            steps = [line.split(" - ")[0].strip() for line in proc.stdout.splitlines()
+                     if line.startswith(("   OK", "   WARN", "   FAIL"))]
+            row = {"twin": module, "rc": proc.returncode, "wall_s": wall_s, "steps": steps}
+            print("smoke twin: " + json.dumps(row))
+            if proc.returncode != 0 or "FAIL" in steps:
+                fail(f"{module} exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    for module, timeout_s in SMOKE_TIMEOUT_S.items():
+        out = os.path.join(work.name, f"{module}.json")
+        proc, wall_s = _run_twin([sys.executable, "-m", f"k8s_watcher_tpu_torch.{module}", "--out", out], timeout_s)
+        artifact = {}
+        if os.path.exists(out):
+            with open(out) as fh:
+                artifact = json.load(fh)
+        checks = artifact.get("checks") or {}
+        declared = list(importlib.import_module(f"k8s_watcher_tpu_torch.{module}").CHECKS)
+        row = {"twin": module, "rc": proc.returncode, "wall_s": wall_s, "checks": len(checks),
+               "checks_passed": sum(1 for v in checks.values() if v is True), "ok": artifact.get("ok")}
+        if module == "analytics_smoke" and artifact:
+            row["analytics_ms"] = {k: _histogram_ms(v) for k, v in artifact["analytics_histograms"].items()}
+            row["request_ms"] = artifact["request_ms"]
+        if module == "columnar_smoke" and artifact:
+            row.update(pods=artifact["pods"], objects=artifact.get("objects"), memory=artifact.get("memory"),
+                       body_mb=artifact.get("body_mb"), analytics_summary_ms=artifact.get("analytics_summary_ms"),
+                       analytics_ms={core: {k: _histogram_ms(v) for k, v in hist.items()}
+                                     for core, hist in (artifact.get("analytics_histograms") or {}).items()})
+        print("smoke twin: " + json.dumps(row))
+        if proc.returncode != 0 or artifact.get("ok") is not True or list(checks) != declared or \
+                not all(v is True for v in checks.values()):
+            failed = [k for k, v in checks.items() if v is not True]
+            fail(f"{module} exited {proc.returncode}, ok {artifact.get('ok')}, failed checks {failed}, "
+                 f"checks {sorted(checks)} against {sorted(declared)}:\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    out = os.path.join(work.name, "integration.json")
+    proc, wall_s = _run_twin([sys.executable, "-m", "k8s_watcher_tpu_torch.integration_tier", "--backend", "auto",
+                              "--out", out], 600)
+    result = {}
+    if os.path.exists(out):
+        with open(out) as fh:
+            result = json.load(fh)
+    row = {"twin": "integration_tier", "rc": proc.returncode, "wall_s": wall_s, "backend": result.get("backend"),
+           "write_tier": result.get("write_tier"), "summary": result.get("summary"), "ok": result.get("ok")}
+    print("smoke twin: " + json.dumps(row))
+    work.cleanup()
+    if proc.returncode != 0 or result.get("ok") is not True:
+        fail(f"integration_tier exited {proc.returncode}:\n{proc.stdout[-2000:]}\n{result.get('log_tail', '')[-3000:]}")
+
+
 def main() -> int:
     import torch
 
@@ -4378,6 +4481,12 @@ def main() -> int:
     for kernel in kernels:
         kernel["path_launches"] = {"16a": soak_launches[kernel["name"]]}
     acceptance_phase()
+
+    # 17. the JAX package's tooling as the port's twins: the connection
+    # checks, the eleven smoke drills and the integration tier
+    t0 = time.monotonic()
+    smoke_phase(name, power_limit)
+    print("smoke phase: " + json.dumps({"wall_s": time.monotonic() - t0, "device": name, "power_limit": power_limit}))
 
     if torch.distributed.is_initialized():
         torch.distributed.destroy_process_group()

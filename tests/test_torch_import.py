@@ -22,8 +22,9 @@ production reader makes, holds neither torch nor jax, and neither does a
 spawned federation merge worker. The standalone mock apiserver
 (``python -m k8s_watcher_tpu_torch.mock_apiserver``) serves its seeded
 cluster and stops within 10 s of SIGINT. The soak, the offline replay's
-analytics and the acceptance drill, asked for the card without CUDA, exit
-non-zero with an error naming CUDA.
+analytics, the acceptance drill and every smoke drill's twin, asked for the
+card without CUDA, exit non-zero with an error naming CUDA. No module of the
+port loads a file of ``scripts/``.
 """
 
 import json
@@ -44,10 +45,15 @@ import pytest
 import yaml
 
 REPO = Path(__file__).resolve().parent.parent
+#: the port's twins of the JAX package's ``scripts/*_smoke.py``
+SMOKES = ("serve_smoke", "history_smoke", "analytics_smoke", "columnar_smoke", "health_smoke", "obs_smoke",
+          "trace_smoke", "ingest_smoke", "federation_smoke", "fanin_smoke", "relay_smoke")
 
 _GATE = """
 import contextlib, importlib, io, json, pkgutil, sys
+import os
 import k8s_watcher_tpu_torch
+scripts = os.path.join(os.path.dirname(os.path.dirname(k8s_watcher_tpu_torch.__file__)), "scripts") + os.sep
 names = [m.name for m in pkgutil.walk_packages(k8s_watcher_tpu_torch.__path__, "k8s_watcher_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
@@ -60,7 +66,8 @@ payload = json.loads(out.getvalue())
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
                 or m == "k8s_watcher_tpu" or m.startswith("k8s_watcher_tpu.")
-                or m == "requests" or m.startswith("requests.") or m == "urllib3" or m.startswith("urllib3."))
+                or m == "requests" or m.startswith("requests.") or m == "urllib3" or m.startswith("urllib3.")
+                or (getattr(sys.modules[m], "__file__", None) or "").startswith(scripts))
 print(json.dumps({"modules": names, "rc": rc, "healthy": payload["healthy"], "links": payload["links"],
                   "forbidden": loaded, "graft_entry": callable(__graft_entry_gpu__.entry)}))
 """
@@ -93,7 +100,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "federate", "federate.client", "federate.merge", "federate.plane", "federate.fanin",
                    "relay", "relay.plane", "graft", "chaos_probe", "parallel.cpu_ranks",
                    "k8s.mock_server", "faults.injection", "mock_apiserver", "remediate_ctl", "chaos_remediate",
-                   "drill_common", "probe_soak", "history_replay", "acceptance_drill"):
+                   "drill_common", "probe_soak", "history_replay", "acceptance_drill",
+                   "smoke_common", "check_connection", "check_mock", "integration_tier", *SMOKES):
         assert f"k8s_watcher_tpu_torch.{module}" in result["modules"], module
 
 
@@ -101,6 +109,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     ("probe_soak", ["--minutes", "0.01"]),
     ("history_replay", ["--analytics"]),
     ("acceptance_drill", ["--seconds", "1"]),
+    *((smoke, []) for smoke in SMOKES),
 ])
 def test_entry_point_without_cuda_or_its_cpu_flag_fails_naming_cuda(module, argv, tmp_path):
     """Asked for the card where there is none, each entry point exits

@@ -2,15 +2,15 @@
 port's ``notify/`` (the cluster API client, its connection pool and retry
 policy, the dispatcher with its coalescing and bounded shutdown).
 
-``TestPersistentConnection::test_stale_keepalive_resent_transparently`` runs
-unchanged. It fails on the test's own race, in the reference now and then and
-in the port nearly always: its one-shot server thread closes the listening
-socket only after it has sent the response, so the test's second server can
-bind the same port before the close and get ``EADDRINUSE`` (``ROADMAP.md``
-§C "Not port faults"). Beside it,
-``test_stale_keepalive_resent_once_the_listener_is_closed`` holds the port's
-client to the same contract with that race closed: the second server binds
-only once the first listener is gone.
+``TestPersistentConnection::test_stale_keepalive_resent_transparently`` has a
+race of its own: its one-shot server thread closes the listening socket only
+after it has sent the response, so the test's second server can bind the
+same port before that close and get ``EADDRINUSE`` (``ROADMAP.md`` §C "Not
+port faults"). The replay closes that race with two textual rewrites: the
+thread is kept as ``once`` and joined before the second server binds. The
+test's assertions are unchanged. Beside it,
+``test_stale_keepalive_resent_once_the_listener_is_closed`` states the same
+contract in the port's own words.
 """
 
 import socket
@@ -21,7 +21,15 @@ from k8s_watcher_tpu_torch.config import RetryPolicy
 from k8s_watcher_tpu_torch.notify.client import ClusterApiClient
 from test_torch_replay import replay, replayed_tests
 
-_notify = replay("test_notify.py", rewrites=[("k8s_watcher_tpu.config.schema", "k8s_watcher_tpu.config")])
+_notify = replay("test_notify.py", rewrites=[
+    ("k8s_watcher_tpu.config.schema", "k8s_watcher_tpu.config"),
+    # the stale keep-alive test: join the one-shot server before the rebind
+    ("        threading.Thread(target=serve_once, daemon=True).start()\n",
+     "        once = threading.Thread(target=serve_once, daemon=True)\n        once.start()\n"),
+    ('        assert client.update_pod_status({"name": "before"}) is True\n',
+     '        assert client.update_pod_status({"name": "before"}) is True\n'
+     "        once.join(10)\n        assert not once.is_alive()\n"),
+])
 api_server = _notify.api_server  # the replayed tests' fixture
 globals().update(replayed_tests(_notify))
 
