@@ -28,6 +28,7 @@ import torch
 from k8s_watcher_tpu_torch.config import TpuConfig
 from k8s_watcher_tpu_torch.metrics import MetricsRegistry
 from k8s_watcher_tpu_torch.pipeline.pipeline import Notification
+from k8s_watcher_tpu_torch.probe import spans
 from k8s_watcher_tpu_torch.probe.device import (
     all_gather_rows,
     enumerate_devices,
@@ -125,8 +126,17 @@ class ProbeAgent:
     MAX_PROFILE_RUNS = 20
 
     def run_once(self) -> ProbeReport:
-        """One probe cycle; traced with ``torch.profiler`` into a chrome trace
-        under ``tpu.probe.profile_dir`` when that is set."""
+        """One probe cycle, a ``probe.cycle`` span (probe/spans.py); traced
+        with ``torch.profiler`` into a chrome trace under
+        ``tpu.probe.profile_dir`` when that is set, the stages' spans as
+        ranges in it. The flight recorder's entry is written once the cycle
+        has closed, with its spans' times and counters."""
+        with spans.cycle(self.device):
+            report = self._run_profiled()
+        self._record_cycle(report)
+        return report
+
+    def _run_profiled(self) -> ProbeReport:
         if not self.config.probe_profile_dir:
             return self._run_once_inner()
         activities = [torch.profiler.ProfilerActivity.CPU]
@@ -186,49 +196,50 @@ class ProbeAgent:
             hbm = run_hbm_probe(self.config.probe_hbm_bytes, device=self.device)
             if self.config.probe_hbm_write_enabled:
                 hbm_write = run_hbm_write_probe(self.config.probe_hbm_bytes, device=self.device)
-        report = ProbeReport(
-            environment=self.environment,
-            devices=devices,
-            ici=ici,
-            mxu=mxu,
-            hbm=hbm,
-            hbm_write=hbm_write,
-            links=links,
-            multislice=multislice,
-            host=host_identity(),
-            hosts=host_identity_map(self.device),
-            rtt_warn_ms=self.config.probe_rtt_warn_ms,
-            duration_ms=1e3 * (time.monotonic() - t0),
-        )
-        # trend folding sees the PRE-TREND verdict: an unhealthy cycle is
-        # judged for drift but must not shape the "healthy" anchor
-        report.trend_alerts = self._fold_trends(
-            ici, mxu, hbm, hbm_write, links, multislice, cycle_healthy=report.healthy
-        )
-        if process_count() > 1:
-            # every rank, every cycle, armed or not: a collective that only
-            # armed ranks joined would hang the group
-            try:
-                report.node_findings = gather_node_findings(report, self.device)
-            except Exception as exc:  # noqa: BLE001 — the cycle's readings stand without it
-                logger.error("Gathering the node's local findings failed: %s", exc)
-        self.metrics.counter("probe_runs").inc()
-        if ici.psum_rtt_ms >= 0:
-            self.metrics.histogram("probe_psum_rtt").record(ici.psum_rtt_ms / 1e3)
-        if not report.healthy:
-            self.metrics.counter("probe_unhealthy").inc()
-        # a completed cycle, healthy or not, proves the agent alive; a cycle
-        # that raised or hangs stamps nothing, so liveness goes stale
-        self.heartbeat()
-        self._record_cycle(report)
-        observer = self.report_observer
-        if observer is not None:
-            try:
-                observer(report)
-            except Exception as exc:  # noqa: BLE001 — an observer bug must not stop probing
-                logger.error("Probe report observer failed: %s", exc)
-                self.metrics.counter("probe_observer_errors").inc()
-        return report
+        with spans.span("probe.report"):
+            report = ProbeReport(
+                environment=self.environment,
+                devices=devices,
+                ici=ici,
+                mxu=mxu,
+                hbm=hbm,
+                hbm_write=hbm_write,
+                links=links,
+                multislice=multislice,
+                host=host_identity(),
+                hosts=host_identity_map(self.device),
+                rtt_warn_ms=self.config.probe_rtt_warn_ms,
+                duration_ms=1e3 * (time.monotonic() - t0),
+            )
+            # trend folding sees the PRE-TREND verdict: an unhealthy cycle is
+            # judged for drift but must not shape the "healthy" anchor
+            report.trend_alerts = self._fold_trends(
+                ici, mxu, hbm, hbm_write, links, multislice, cycle_healthy=report.healthy
+            )
+            if process_count() > 1:
+                # every rank, every cycle, armed or not: a collective that only
+                # armed ranks joined would hang the group
+                try:
+                    report.node_findings = gather_node_findings(report, self.device)
+                except Exception as exc:  # noqa: BLE001 — the cycle's readings stand without it
+                    logger.error("Gathering the node's local findings failed: %s", exc)
+            self.metrics.counter("probe_runs").inc()
+            if ici.psum_rtt_ms >= 0:
+                self.metrics.histogram("probe_psum_rtt").record(ici.psum_rtt_ms / 1e3)
+            if not report.healthy:
+                self.metrics.counter("probe_unhealthy").inc()
+            # a completed cycle, healthy or not, proves the agent alive; a cycle
+            # that raised or hangs stamps nothing, so liveness goes stale
+            self.heartbeat()
+            observer = self.report_observer
+            if observer is not None:
+                try:
+                    with spans.span("probe.observer"):
+                        observer(report)
+                except Exception as exc:  # noqa: BLE001 — an observer bug must not stop probing
+                    logger.error("Probe report observer failed: %s", exc)
+                    self.metrics.counter("probe_observer_errors").inc()
+            return report
 
     def _fold_trends(self, ici, mxu, hbm, hbm_write, links, multislice, *, cycle_healthy: bool = True) -> list:
         """Publish each median reading as a gauge (cleared when the sub-probe
@@ -304,7 +315,11 @@ class ProbeAgent:
             self.sink(Notification(report.to_payload(), time.monotonic(), kind="probe"))
 
     def _record_cycle(self, report: ProbeReport) -> None:
-        """Fold one completed cycle into the flight-recorder ring."""
+        """Fold one completed cycle into the flight-recorder ring, with its
+        spans (the one just closed on this thread): each stage's ms and the
+        cycle's self time, its readbacks, GC ms, device allocations (CUDA)
+        and graph captures."""
+        cycle = spans.RECORDER.last()
         entry = {
             "ts": datetime.datetime.now(datetime.timezone.utc).isoformat(timespec="seconds"),
             "healthy": report.healthy,
@@ -320,6 +335,11 @@ class ProbeAgent:
                 {"metric": a.metric, "direction": a.direction, "ratio": round(a.ratio, 2)}
                 for a in (report.trend_alerts or [])
             ],
+            "stages_ms": {name: round(ms, 3) for name, ms in cycle.stages_ms().items()},
+            "syncs": cycle.counters["syncs"],
+            "gc_ms": round(cycle.gc_ms(), 3),
+            "device_allocs": cycle.counters.get("device_allocs"),
+            "graph_captures": cycle.counters["graph_captures"],
         }
         with self._cycles_lock:
             self._cycles.append(entry)

@@ -19,6 +19,8 @@ from typing import Any, Dict, List, Optional
 import torch
 import torch.distributed as dist
 
+from k8s_watcher_tpu_torch.probe import spans
+
 logger = logging.getLogger(__name__)
 
 
@@ -123,7 +125,8 @@ def all_gather_rows(raw: bytes, device: Optional[torch.device] = None) -> List[b
     n = process_count()
     gathered = torch.empty(n * width, dtype=torch.uint8, device=device)
     dist.all_gather_into_tensor(gathered, buf.to(device))
-    rows = gathered.cpu().view(n, width).numpy()
+    with spans.sync():
+        rows = gathered.cpu().view(n, width).numpy()
     return [rows[idx].tobytes().rstrip(b"\x00") for idx in range(n)]
 
 
@@ -189,12 +192,14 @@ def _device_alive(device: torch.device) -> bool:
     """Run a one-element computation on ``device``."""
     try:
         x = torch.tensor(2.0, dtype=torch.float32, device=device)
-        return float((x * x).item()) == 4.0
+        with spans.sync():
+            return float((x * x).item()) == 4.0
     except Exception as exc:  # noqa: BLE001 — a dead device must read as dead, not raise
         logger.error("Device %s failed liveness computation: %s", device, exc)
         return False
 
 
+@spans.traced("probe.inventory")
 def enumerate_devices(
     own: Optional[torch.device] = None,
     *,

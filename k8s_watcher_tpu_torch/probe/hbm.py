@@ -39,8 +39,9 @@ from k8s_watcher_tpu_torch.kernels.hbm import (
     WRITE_BLOCK_ELEMS,
     WRITE_BYTES_PER_BLOCK,
 )
+from k8s_watcher_tpu_torch.probe import spans
 from k8s_watcher_tpu_torch.probe.device import device_id, resolve_device
-from k8s_watcher_tpu_torch.probe.timing import fence_baseline_ms, fetch_scalar
+from k8s_watcher_tpu_torch.probe.timing import fence_baseline_ms, fetch_scalar, read_scalar
 
 logger = logging.getLogger(__name__)
 
@@ -69,11 +70,11 @@ def _timed_pass_ms(run, device, iters: int, baseline_ms: float, repeats: int,
     for _ in range(iters):
         if on_card:
             timer = ctypes.c_float()
-            fetch_scalar(run(timer))
+            read_scalar(run(timer))
             per_exec.append(timer.value)
         else:
             t0 = time.perf_counter()
-            fetch_scalar(run(None))
+            read_scalar(run(None))
             per_exec.append(1e3 * (time.perf_counter() - t0))
         if 1e3 * (time.perf_counter() - loop_t0) > budget_ms:
             break
@@ -88,6 +89,7 @@ def _timed_pass_ms(run, device, iters: int, baseline_ms: float, repeats: int,
     )
 
 
+@spans.traced("probe.hbm_read")
 def run_hbm_probe(
     total_bytes: int = 256 * 1024 * 1024,
     *,
@@ -96,29 +98,32 @@ def run_hbm_probe(
 ) -> Dict[str, Any]:
     """Measure achieved HBM read bandwidth on one device."""
     try:
-        device = resolve_device(device)
-        interpret = device.type != "cuda"
-        if interpret:
-            total_bytes = min(total_bytes, BYTES_PER_BLOCK * 2)
+        with spans.span("probe.hbm_read.setup"):
+            device = resolve_device(device)
+            interpret = device.type != "cuda"
+            if interpret:
+                total_bytes = min(total_bytes, BYTES_PER_BLOCK * 2)
 
-        num_blocks = max(1, total_bytes // BYTES_PER_BLOCK)
-        rows = num_blocks * BLOCK_ROWS
-        actual_bytes = num_blocks * BYTES_PER_BLOCK
-        repeats = 1 if interpret else _pick_repeats(actual_bytes)
-        x = torch.ones((rows, WIDTH), dtype=torch.float32, device=device)
+            num_blocks = max(1, total_bytes // BYTES_PER_BLOCK)
+            rows = num_blocks * BLOCK_ROWS
+            actual_bytes = num_blocks * BYTES_PER_BLOCK
+            repeats = 1 if interpret else _pick_repeats(actual_bytes)
+            x = torch.ones((rows, WIDTH), dtype=torch.float32, device=device)
 
-        t0 = time.perf_counter()
-        out = kernels.read_sweep(x, repeats)
-        got = float(out.sum()) / repeats  # fence doubles as integrity read
-        compile_ms = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            out = kernels.read_sweep(x, repeats)
+            with spans.sync():
+                got = float(out.sum()) / repeats  # fence doubles as integrity read
+            compile_ms = 1e3 * (time.perf_counter() - t0)
 
-        expected = float(rows * WIDTH)
-        integrity_ok = abs(got - expected) <= 1e-6 * expected
+            expected = float(rows * WIDTH)
+            integrity_ok = abs(got - expected) <= 1e-6 * expected
 
-        baseline_ms = fence_baseline_ms(device)
-        pass_ms, pass_min_ms, unreliable = _timed_pass_ms(
-            lambda timer: kernels.read_sweep(x, repeats, timer=timer), device, iters, baseline_ms, repeats
-        )
+            baseline_ms = fence_baseline_ms(device)
+        with spans.span("probe.hbm_read.timed"):
+            pass_ms, pass_min_ms, unreliable = _timed_pass_ms(
+                lambda timer: kernels.read_sweep(x, repeats, timer=timer), device, iters, baseline_ms, repeats
+            )
 
         return {
             "ok": integrity_ok,
@@ -139,6 +144,7 @@ def run_hbm_probe(
         return {"ok": False, "error": str(exc)}
 
 
+@spans.traced("probe.hbm_write")
 def run_hbm_write_probe(
     total_bytes: int = 256 * 1024 * 1024,
     *,
@@ -149,43 +155,47 @@ def run_hbm_write_probe(
     """Measure achieved HBM write bandwidth and verify pattern integrity,
     naming WHICH blocks (which byte ranges) are bad."""
     try:
-        device = resolve_device(device)
-        interpret = device.type != "cuda"
-        if interpret:
-            total_bytes = min(total_bytes, WRITE_BYTES_PER_BLOCK * 2)
+        with spans.span("probe.hbm_write.setup"):
+            device = resolve_device(device)
+            interpret = device.type != "cuda"
+            if interpret:
+                total_bytes = min(total_bytes, WRITE_BYTES_PER_BLOCK * 2)
 
-        num_blocks = max(1, total_bytes // WRITE_BYTES_PER_BLOCK)
-        actual_bytes = num_blocks * WRITE_BYTES_PER_BLOCK
-        repeats = 1 if interpret else _pick_repeats(actual_bytes)
+            num_blocks = max(1, total_bytes // WRITE_BYTES_PER_BLOCK)
+            actual_bytes = num_blocks * WRITE_BYTES_PER_BLOCK
+            repeats = 1 if interpret else _pick_repeats(actual_bytes)
 
-        t0 = time.perf_counter()
-        y = kernels.fill(carry.seed(0.0, device), num_blocks, repeats)  # kept for the verify pass
-        fetch_scalar(y)
-        compile_ms = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            y = kernels.fill(carry.seed(0.0, device), num_blocks, repeats)  # kept for the verify pass
+            fetch_scalar(y)
+            compile_ms = 1e3 * (time.perf_counter() - t0)
 
-        baseline_ms = fence_baseline_ms(device)
-        # seeds made and fenced before the timed window, a fresh one per run
-        seed_tensors = [carry.seed(float(k + 1), device) for k in range(iters)]
-        for s in seed_tensors:
-            fetch_scalar(s)
-        seeds = iter(seed_tensors)
+            baseline_ms = fence_baseline_ms(device)
+            # seeds made and fenced before the timed window, a fresh one per run
+            seed_tensors = [carry.seed(float(k + 1), device) for k in range(iters)]
+            for s in seed_tensors:
+                fetch_scalar(s)
+            seeds = iter(seed_tensors)
 
-        pass_ms, pass_min_ms, unreliable = _timed_pass_ms(
-            lambda timer: kernels.fill(next(seeds), num_blocks, repeats, timer=timer), device, iters,
-            baseline_ms, repeats,
-        )
+        with spans.span("probe.hbm_write.timed"):
+            pass_ms, pass_min_ms, unreliable = _timed_pass_ms(
+                lambda timer: kernels.fill(next(seeds), num_blocks, repeats, timer=timer), device, iters,
+                baseline_ms, repeats,
+            )
 
-        # verify the first buffer (every pass writes the same seed-0 pattern)
-        # rather than re-running the multi-pass writer
-        if corrupt_hook is not None:
-            y = corrupt_hook(y)
-        sums = kernels.blocksums(y)
+        with spans.span("probe.hbm_write.verify"):
+            # verify the first buffer (every pass writes the same seed-0 pattern)
+            # rather than re-running the multi-pass writer
+            if corrupt_hook is not None:
+                y = corrupt_hook(y)
+            sums = kernels.blocksums(y)
 
-        expected = np.arange(1, num_blocks + 1, dtype=np.float64) * WRITE_BLOCK_ELEMS
-        got = carry.from_port(sums).astype(np.float64).reshape(-1)
-        # block sums are v * 2^17 with small integer v, exact in f32; the
-        # tolerance only absorbs reduction-order effects
-        bad = np.nonzero(np.abs(got - expected) > 1e-5 * expected)[0]
+            expected = np.arange(1, num_blocks + 1, dtype=np.float64) * WRITE_BLOCK_ELEMS
+            with spans.sync():
+                got = carry.from_port(sums).astype(np.float64).reshape(-1)
+            # block sums are v * 2^17 with small integer v, exact in f32; the
+            # tolerance only absorbs reduction-order effects
+            bad = np.nonzero(np.abs(got - expected) > 1e-5 * expected)[0]
         bad_blocks = [
             {
                 "block": int(b),

@@ -28,6 +28,7 @@ from k8s_watcher_tpu_torch.parallel.collectives import (
     psum_probe_input,
 )
 from k8s_watcher_tpu_torch.parallel.mesh import Mesh, host_chip_mesh
+from k8s_watcher_tpu_torch.probe import spans
 from k8s_watcher_tpu_torch.probe.device import device_id, resolve_device
 from k8s_watcher_tpu_torch.probe.timing import (
     TimedStats,
@@ -63,6 +64,7 @@ class IciProbeResult:
         return dataclasses.asdict(self)
 
 
+@spans.traced("probe.ici")
 def run_ici_probe(
     mesh: Optional[Mesh] = None,
     *,
@@ -76,33 +78,38 @@ def run_ici_probe(
 
     Bandwidth stays 0.0 in a group of one rank: there is no link to measure."""
     try:
-        if mesh is None:
-            mesh = host_chip_mesh(resolve_device(device))
-        n = mesh.size
-        n_hosts = mesh.ranks.shape[0]
+        with spans.span("probe.ici.setup"):
+            if mesh is None:
+                mesh = host_chip_mesh(resolve_device(device))
+            n = mesh.size
+            n_hosts = mesh.ranks.shape[0]
 
-        t0 = time.perf_counter()
-        psum = make_psum_probe(mesh, inner_iters, fault)
-        x = psum_probe_input(mesh)
-        result = psum(x)
-        fetch_scalar(result)  # warmup (fenced)
-        compile_ms = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            psum = make_psum_probe(mesh, inner_iters, fault)
+            x = psum_probe_input(mesh)
+            result = psum(x)
+            fetch_scalar(result)  # warmup (fenced)
+            compile_ms = 1e3 * (time.perf_counter() - t0)
 
-        expected = (n + 1) / 2.0  # fixed point of chained all_reduce(x)/n
-        psum_correct = bool(np.allclose(result.cpu().numpy()[0], expected))
+            expected = (n + 1) / 2.0  # fixed point of chained all_reduce(x)/n
+            with spans.sync():
+                psum_correct = bool(np.allclose(result.cpu().numpy()[0], expected))
 
-        baseline_ms = fence_baseline_ms(mesh.device)
-        rtt_stats = timed_fenced(psum, x, iters, baseline_ms)
+            baseline_ms = fence_baseline_ms(mesh.device)
+        with spans.span("probe.ici.timed"):
+            rtt_stats = timed_fenced(psum, x, iters, baseline_ms)
         rtt_min, rtt_mean, rtt_max = (t / inner_iters for t in rtt_stats)
         unreliable = rtt_stats.unreliable
 
         bw_gbps = 0.0
         bw_gbps_median = 0.0
         if payload_bytes > 0 and n > 1:
-            bw_fn = make_allreduce_bandwidth_probe(mesh, payload_bytes, fault)
-            payload = bandwidth_probe_input(mesh, payload_bytes)
-            fetch_scalar(bw_fn(payload))  # warmup
-            bw_stats = timed_fenced(bw_fn, payload, max(3, iters // 3), baseline_ms)
+            with spans.span("probe.ici.setup"):
+                bw_fn = make_allreduce_bandwidth_probe(mesh, payload_bytes, fault)
+                payload = bandwidth_probe_input(mesh, payload_bytes)
+                fetch_scalar(bw_fn(payload))  # warmup
+            with spans.span("probe.ici.timed"):
+                bw_stats = timed_fenced(bw_fn, payload, max(3, iters // 3), baseline_ms)
             bw_gbps = allreduce_bus_bandwidth_gbps(payload_bytes, n, bw_stats[0])
             bw_gbps_median = allreduce_bus_bandwidth_gbps(payload_bytes, n, bw_stats.median)
             unreliable = unreliable or bw_stats.unreliable
@@ -148,6 +155,7 @@ def mxu_chain(a: torch.Tensor, b: torch.Tensor, inner_iters: int, inv_scale: flo
     return carry
 
 
+@spans.traced("probe.mxu")
 def run_mxu_probe(
     size: int = 4096,
     *,
@@ -161,25 +169,34 @@ def run_mxu_probe(
     Operands come from a ``torch.Generator`` seeded 0 (entries unit-normal,
     so each product scales RMS by ~sqrt(size), undone by the rescale)."""
     try:
-        device = resolve_device(device)
-        inv_scale = 1.0 / (size**0.5)
-        gen = torch.Generator(device=device).manual_seed(0)
-        a = torch.randn((size, size), generator=gen, device=device).to(torch.bfloat16)
-        b = torch.randn((size, size), generator=gen, device=device).to(torch.bfloat16)
+        with spans.span("probe.mxu.setup"):
+            device = resolve_device(device)
+            inv_scale = 1.0 / (size**0.5)
+            gen = torch.Generator(device=device).manual_seed(0)
+            a = torch.randn((size, size), generator=gen, device=device).to(torch.bfloat16)
+            b = torch.randn((size, size), generator=gen, device=device).to(torch.bfloat16)
 
-        def step(ab):
-            return mxu_chain(ab[0], ab[1], inner_iters, inv_scale)
+            def step(ab):
+                return mxu_chain(ab[0], ab[1], inner_iters, inv_scale)
 
-        out = step((a, b))
-        fetch_scalar(out)  # warmup (fenced)
-        finite = bool(torch.isfinite(out.float()).all())
+            out = step((a, b))
+            fetch_scalar(out)  # warmup (fenced)
+            with spans.sync():
+                finite = bool(torch.isfinite(out.float()).all())
+            if device.type == "cuda":
+                # one graph launch per timed run: see probe/timing.py
+                with spans.span("probe.mxu.capture"):
+                    graph, graph_out = capture_graph(lambda: step((a, b)), device)
+            else:
+                baseline_ms = fence_baseline_ms(device)
+        with spans.span("probe.mxu.timed"):
+            if device.type == "cuda":
+                stats = TimedStats.of([ms / 1e3 for ms in graph_times_ms(graph, device, iters)])
+            else:
+                stats = timed_fenced(step, (a, b), iters, baseline_ms)
         if device.type == "cuda":
-            # one graph launch per timed run: see probe/timing.py
-            graph, graph_out = capture_graph(lambda: step((a, b)), device)
-            stats = TimedStats.of([ms / 1e3 for ms in graph_times_ms(graph, device, iters)])
-            finite = finite and bool(torch.isfinite(graph_out.float()).all())
-        else:
-            stats = timed_fenced(step, (a, b), iters, fence_baseline_ms(device))
+            with spans.sync():
+                finite = finite and bool(torch.isfinite(graph_out.float()).all())
         tmin = stats[0]
         flops = 2.0 * size**3 * inner_iters
         return {

@@ -44,8 +44,9 @@ import torch.distributed as dist
 from k8s_watcher_tpu_torch.faults.ici import IciFaultSpec
 from k8s_watcher_tpu_torch.parallel.collectives import make_pair_probe, pair_probe_input
 from k8s_watcher_tpu_torch.parallel.mesh import Mesh, host_chip_mesh
+from k8s_watcher_tpu_torch.probe import spans
 from k8s_watcher_tpu_torch.probe.device import resolve_device
-from k8s_watcher_tpu_torch.probe.timing import fetch_scalar
+from k8s_watcher_tpu_torch.probe.timing import fetch_scalar, read_scalar
 
 logger = logging.getLogger(__name__)
 
@@ -187,7 +188,7 @@ def _timed_pair(fn, x, expected: float, iters: int, inner_iters: int) -> Tuple[f
     times, correct = [], True
     for _ in range(iters):
         t0 = time.perf_counter()
-        out = fetch_scalar(fn(x))
+        out = read_scalar(fn(x))
         times.append(time.perf_counter() - t0)
         if abs(out - expected) > 1e-3 * max(1.0, abs(expected)):
             correct = False
@@ -219,7 +220,8 @@ def merge_owned_records(
     world = dist.get_world_size()
     gathered = torch.empty((world * buf.shape[0], 3), dtype=torch.float32, device=mesh.device)
     dist.all_gather_into_tensor(gathered, buf.to(mesh.device))
-    rows = gathered.cpu().view(world, buf.shape[0], 3).numpy()
+    with spans.sync():
+        rows = gathered.cpu().view(world, buf.shape[0], 3).numpy()
     merged: List[LinkResult] = []
     for k, (axis, name, ids) in enumerate(order):
         held = rows[:, k, :][rows[:, k, 0] > _NOT_OWNED + 0.5]
@@ -234,6 +236,7 @@ def merge_owned_records(
     return merged, bool(np.any(rows[:, -1, 0] > 0.5))
 
 
+@spans.traced("probe.links")
 def run_link_probe(
     mesh: Optional[Mesh] = None,
     *,
@@ -249,45 +252,46 @@ def run_link_probe(
     Every rank must call this together: the agreement all-reduce and the
     record gather are collectives over the default group."""
     try:
-        if mesh is None:
-            mesh = host_chip_mesh(resolve_device(device))
-        links = enumerate_links(mesh)
-        if not links:
-            return LinkProbeResult(
-                ok=True, n_links=0, n_observed=0, median_rtt_ms=0.0, links=[],
-                suspect_links=[], suspect_devices=[], compile_ms=0.0,
-            )
-        me = mesh.rank
-        mine = [link for link in links if me in link[2:]]
+        with spans.span("probe.links.setup"):
+            if mesh is None:
+                mesh = host_chip_mesh(resolve_device(device))
+            links = enumerate_links(mesh)
+            if not links:
+                return LinkProbeResult(
+                    ok=True, n_links=0, n_observed=0, median_rtt_ms=0.0, links=[],
+                    suspect_links=[], suspect_devices=[], compile_ms=0.0,
+                )
+            me = mesh.rank
+            mine = [link for link in links if me in link[2:]]
 
-        # PREPARATION: everything local happens before any exchange. A local
-        # failure is one-sided (the peer would wait forever in an exchange
-        # this rank never joins), so it is reconciled across ranks below.
-        observed: List[LinkResult] = []
-        prepared = []
-        prep_ok = True
-        for axis, name, a, b in mine:
-            owner = me == min(a, b)
-            try:
-                if _PREP_FAILURE_HOOK is not None and _PREP_FAILURE_HOOK(name):
-                    raise RuntimeError("injected preparation failure (test hook)")
-                fn, expected = make_pair_probe(a, b, inner_iters, fault)
-                x = pair_probe_input(a, b, mesh.device)
-            except Exception as exc:  # noqa: BLE001 — containment, see above
-                logger.warning("Link probe %s preparation failed: %s", name, exc)
-                observed.append(LinkResult(
-                    axis=axis, name=name, device_ids=(a, b), rtt_ms=-1.0, rtt_mean_ms=-1.0,
-                    correct=False, owner=owner, error=f"preparation: {exc}",
-                ))
-                prep_ok = False
-                continue
-            prepared.append((axis, name, a, b, owner, fn, x, expected))
+            # PREPARATION: everything local happens before any exchange. A local
+            # failure is one-sided (the peer would wait forever in an exchange
+            # this rank never joins), so it is reconciled across ranks below.
+            observed: List[LinkResult] = []
+            prepared = []
+            prep_ok = True
+            for axis, name, a, b in mine:
+                owner = me == min(a, b)
+                try:
+                    if _PREP_FAILURE_HOOK is not None and _PREP_FAILURE_HOOK(name):
+                        raise RuntimeError("injected preparation failure (test hook)")
+                    fn, expected = make_pair_probe(a, b, inner_iters, fault)
+                    x = pair_probe_input(a, b, mesh.device)
+                except Exception as exc:  # noqa: BLE001 — containment, see above
+                    logger.warning("Link probe %s preparation failed: %s", name, exc)
+                    observed.append(LinkResult(
+                        axis=axis, name=name, device_ids=(a, b), rtt_ms=-1.0, rtt_mean_ms=-1.0,
+                        correct=False, owner=owner, error=f"preparation: {exc}",
+                    ))
+                    prep_ok = False
+                    continue
+                prepared.append((axis, name, a, b, owner, fn, x, expected))
 
-        # AGREEMENT: if any rank failed to prepare, every rank skips every
-        # exchange this cycle; otherwise the failed rank's peers would hang.
-        run_links = _all_ranks_ready(mesh, prep_ok)
-        if not run_links:
-            logger.warning("Link probe: a rank failed preparation; skipping the walk this cycle")
+            # AGREEMENT: if any rank failed to prepare, every rank skips every
+            # exchange this cycle; otherwise the failed rank's peers would hang.
+            run_links = _all_ranks_ready(mesh, prep_ok)
+            if not run_links:
+                logger.warning("Link probe: a rank failed preparation; skipping the walk this cycle")
 
         # EXECUTION, in the global order on every rank, so overlapping pairs
         # meet deterministically.
@@ -300,10 +304,12 @@ def run_link_probe(
                 ))
                 continue
             try:
-                t0 = time.perf_counter()
-                fetch_scalar(fn(x))  # warm exchange: NCCL connects a pair on first use
-                compile_s += time.perf_counter() - t0
-                rtt_min, rtt_mean, correct = _timed_pair(fn, x, expected, iters, inner_iters)
+                with spans.span("probe.links.setup"):
+                    t0 = time.perf_counter()
+                    fetch_scalar(fn(x))  # warm exchange: NCCL connects a pair on first use
+                    compile_s += time.perf_counter() - t0
+                with spans.span("probe.links.timed"):
+                    rtt_min, rtt_mean, correct = _timed_pair(fn, x, expected, iters, inner_iters)
             except Exception as exc:  # noqa: BLE001 — a failed exchange errors on both ends
                 logger.warning("Link probe %s failed: %s", name, exc)
                 observed.append(LinkResult(

@@ -41,6 +41,7 @@ from k8s_watcher_tpu_torch.parallel.collectives import (
     slice_pair_members,
 )
 from k8s_watcher_tpu_torch.parallel.mesh import Mesh, hybrid_slice_mesh
+from k8s_watcher_tpu_torch.probe import spans
 from k8s_watcher_tpu_torch.probe.device import resolve_device
 from k8s_watcher_tpu_torch.probe.links import LinkResult, classify_links, merge_owned_records
 from k8s_watcher_tpu_torch.probe.timing import fence_baseline_ms, fetch_scalar, timed_fenced
@@ -109,13 +110,15 @@ def _walk_slice_pairs(
             if rank not in members:
                 continue
             owner = rank == members[0]
-            fn, expected = make_slice_pair_probe(mesh, i, j, inner_iters, fault)
-            x = slice_pair_input(mesh, i, j)
-            t0 = time.perf_counter()
-            out = fetch_scalar(fn(x))  # warm-up and checksum
-            compile_s += time.perf_counter() - t0
+            with spans.span("probe.multislice.setup"):
+                fn, expected = make_slice_pair_probe(mesh, i, j, inner_iters, fault)
+                x = slice_pair_input(mesh, i, j)
+                t0 = time.perf_counter()
+                out = fetch_scalar(fn(x))  # warm-up and checksum
+                compile_s += time.perf_counter() - t0
             correct = abs(out - expected) <= 1e-3 * max(1.0, abs(expected))
-            stats = timed_fenced(fn, x, iters, baseline_ms)
+            with spans.span("probe.multislice.timed"):
+                stats = timed_fenced(fn, x, iters, baseline_ms)
             any_unreliable = any_unreliable or stats.unreliable
             records.append(LinkResult(
                 axis="dcn", name=name, device_ids=(i, j),
@@ -140,6 +143,7 @@ def _walk_slice_pairs(
     return records, merged, compile_s, any_unreliable
 
 
+@spans.traced("probe.multislice")
 def run_multislice_probe(
     mesh: Optional[Mesh] = None,
     *,
@@ -158,30 +162,33 @@ def run_multislice_probe(
     node, or ``n_slices`` groups of nodes). Every rank must call this
     together."""
     try:
-        if mesh is None:
-            mesh = hybrid_slice_mesh(resolve_device(device), n_slices)
-        n_sl = mesh.shape["slices"]
-        per_slice_devices = mesh.size // n_sl
-        slice_processes = [sorted(int(r) for r in mesh.ranks[i].ravel()) for i in range(n_sl)]
+        with spans.span("probe.multislice.setup"):
+            if mesh is None:
+                mesh = hybrid_slice_mesh(resolve_device(device), n_slices)
+            n_sl = mesh.shape["slices"]
+            per_slice_devices = mesh.size // n_sl
+            slice_processes = [sorted(int(r) for r in mesh.ranks[i].ravel()) for i in range(n_sl)]
 
-        t0 = time.perf_counter()
-        hier = make_hierarchical_probe(mesh, fault)
-        per_slice, global_sum = hier(torch.ones((1,), dtype=torch.float32, device=mesh.device))
-        ici_fn = make_subaxis_psum_probe(mesh, mesh.axis_names[1:], inner_iters, fault)
-        all_fn = make_subaxis_psum_probe(mesh, mesh.axis_names, inner_iters, fault)
-        x = psum_probe_input(mesh)
-        fetch_scalar(ici_fn(x))
-        fetch_scalar(all_fn(x))
-        compile_ms = 1e3 * (time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            hier = make_hierarchical_probe(mesh, fault)
+            per_slice, global_sum = hier(torch.ones((1,), dtype=torch.float32, device=mesh.device))
+            ici_fn = make_subaxis_psum_probe(mesh, mesh.axis_names[1:], inner_iters, fault)
+            all_fn = make_subaxis_psum_probe(mesh, mesh.axis_names, inner_iters, fault)
+            x = psum_probe_input(mesh)
+            fetch_scalar(ici_fn(x))
+            fetch_scalar(all_fn(x))
+            compile_ms = 1e3 * (time.perf_counter() - t0)
 
-        per_slice = [float(v) for v in per_slice.cpu().tolist()]
-        expected = float(per_slice_devices)
-        suspect = [i for i, v in enumerate(per_slice) if abs(v - expected) > 1e-3 * max(1.0, expected)]
-        global_ok = abs(fetch_scalar(global_sum) - mesh.size) <= 1e-3 * mesh.size
+            with spans.sync():
+                per_slice = [float(v) for v in per_slice.cpu().tolist()]
+            expected = float(per_slice_devices)
+            suspect = [i for i, v in enumerate(per_slice) if abs(v - expected) > 1e-3 * max(1.0, expected)]
+            global_ok = abs(fetch_scalar(global_sum) - mesh.size) <= 1e-3 * mesh.size
 
-        baseline_ms = fence_baseline_ms(mesh.device)
-        ici_stats = timed_fenced(ici_fn, x, iters, baseline_ms)
-        total_stats = timed_fenced(all_fn, x, iters, baseline_ms)
+            baseline_ms = fence_baseline_ms(mesh.device)
+        with spans.span("probe.multislice.timed"):
+            ici_stats = timed_fenced(ici_fn, x, iters, baseline_ms)
+            total_stats = timed_fenced(all_fn, x, iters, baseline_ms)
         ici_s = ici_stats[0] / inner_iters
         total_s = total_stats[0] / inner_iters
 

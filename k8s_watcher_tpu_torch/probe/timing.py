@@ -27,23 +27,35 @@ from typing import Optional
 
 import torch
 
+from k8s_watcher_tpu_torch.probe import spans
 
-def fetch_scalar(out) -> float:
+
+def read_scalar(out) -> float:
     """Read one element of ``out`` (a tensor, or a tuple/list whose first
-    item is one) back to the host: the completion fence."""
+    item is one) back to the host: the completion fence, bare, as the timed
+    launches and the fence baseline's samples take it."""
     while isinstance(out, (tuple, list)):
         out = out[0]
     return float(out.reshape(-1)[0].item())
 
 
+def fetch_scalar(out) -> float:
+    """:func:`read_scalar` as a ``probe.sync`` span: a fence outside the
+    timed launches."""
+    with spans.sync():
+        return read_scalar(out)
+
+
 def fence_baseline_ms(device: Optional[torch.device] = None, samples: int = 3) -> float:
-    """Median cost of the completion fence itself (readback of a tiny tensor)."""
+    """Median cost of the completion fence itself (readback of a tiny tensor),
+    sampled through the same bare :func:`read_scalar` the timed launches
+    end in."""
     tiny = torch.zeros((2,), dtype=torch.float32, device=device)
     fetch_scalar(tiny)  # warm the path
     costs = []
     for _ in range(samples):
         t0 = time.perf_counter()
-        fetch_scalar(tiny)
+        read_scalar(tiny)
         costs.append(1e3 * (time.perf_counter() - t0))
     return statistics.median(costs)
 
@@ -61,6 +73,7 @@ def capture_graph(fn, device: torch.device):
         with torch.cuda.stream(side):
             fn()
         torch.cuda.current_stream().wait_stream(side)
+        spans.count("graph_captures")
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph, capture_error_mode="thread_local"):
             out = fn()
@@ -112,7 +125,7 @@ def timed_fenced(fn, x, iters: int, baseline_ms: float = 0.0) -> TimedStats:
     raw_min = float("inf")
     for _ in range(iters):
         t0 = time.perf_counter()
-        fetch_scalar(fn(x))
+        read_scalar(fn(x))
         raw = time.perf_counter() - t0
         raw_min = min(raw_min, raw)
         times.append(max(raw - baseline_ms / 1e3, 1e-9))

@@ -257,3 +257,28 @@ def test_graph_timing_ignores_busy_host_cores(cuda_device):
             hog.kill()
             hog.wait()
     assert busy > 0.9 * quiet, (quiet, busy)
+
+
+def test_a_cycle_on_card_counts_its_capture_and_device_allocations(cuda_device):
+    """On the card the GEMM stage captures its graph inside its set-up, the
+    cycle counts the capture and the caching allocator's device allocations,
+    and no readback span falls inside a timed launch."""
+    from k8s_watcher_tpu_torch.probe import spans
+
+    config = TpuConfig(probe_payload_bytes=1 << 20, probe_hbm_bytes=32 << 20)
+    agent = ProbeAgent(config, environment="development", sink=lambda n: None, device=cuda_device)
+    agent.run_once()
+    agent.run_once()
+    cycle = spans.RECORDER.last()
+    (capture,) = cycle.named("probe.mxu.capture")
+    assert capture.parent.name == "probe.mxu.setup"
+    counters = cycle.counters
+    assert counters["graph_captures"] == 1
+    assert counters["device_allocs"] >= 0
+    entry = agent.recent_cycles(1)[0]
+    assert entry["graph_captures"] == 1 and entry["device_allocs"] == counters["device_allocs"]
+    assert entry["syncs"] == counters["syncs"] == len(cycle.named("probe.sync"))
+    for name in ("probe.mxu.timed", "probe.hbm_read.timed", "probe.hbm_write.timed"):
+        (timed,) = cycle.named(name)
+        assert not any(s.parent is timed for s in cycle.named("probe.sync")), name
+    print("card cycle counters:", counters, "stages_ms:", entry["stages_ms"])
