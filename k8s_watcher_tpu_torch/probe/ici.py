@@ -12,10 +12,12 @@ On Hopper the collectives are NCCL's and the GEMM is cuBLAS's through
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
+import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
@@ -155,6 +157,77 @@ def mxu_chain(a: torch.Tensor, b: torch.Tensor, inner_iters: int, inv_scale: flo
     return carry
 
 
+def mxu_operands(size: int, device, out=None) -> tuple:
+    """The chain's operands ``(a, b)``: unit normals from a ``torch.Generator``
+    seeded 0, rounded to bf16. Drawn into the two tensors of ``out`` where
+    given, so a kept graph reads the same inputs as a fresh draw."""
+    gen = torch.Generator(device=device).manual_seed(0)
+    if out is None:
+        return tuple(torch.randn((size, size), generator=gen, device=device).to(torch.bfloat16) for _ in range(2))
+    for t in out:
+        t.copy_(torch.randn(t.shape, generator=gen, device=device))
+    return out
+
+
+class KeptGraph:
+    """The GEMM chain's operands, and the CUDA graph that reads them with its
+    output, for one key ``(device index, size, inner_iters)``."""
+
+    __slots__ = ("key", "operands", "graph", "out")
+
+    def __init__(self, key: tuple):
+        self.key = key
+        self.operands: Optional[tuple] = None
+        self.graph = None
+        self.out: Optional[torch.Tensor] = None
+
+    def draw(self, size: int, device) -> tuple:
+        """The operands, drawn anew into the kept tensors: a flipped bit in
+        one does not outlast the cycle."""
+        self.operands = mxu_operands(size, device, out=self.operands)
+        return self.operands
+
+    def capture(self, fn, device) -> tuple:
+        """``(graph, output)`` of ``fn``, captured where none is kept."""
+        if self.graph is None:
+            with spans.span("probe.mxu.capture"):
+                self.graph, self.out = capture_graph(fn, device)
+        return self.graph, self.out
+
+
+class GemmGraphs:
+    """The GEMM chain's CUDA graph, kept from one cycle to the next.
+
+    Every cycle of a process runs the same chain, on the same device and
+    operands, so its graph is captured once and replayed after. Capturing
+    anew each cycle cost more than the capture: ``torch.cuda.graph``
+    synchronizes and empties the caching allocator on entry, which handed
+    the HBM stages' cached buffers back to the driver every cycle, to be
+    allocated again. One key is kept at a time; another key, or a stage that
+    raised inside :meth:`hold`, drops what was kept."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._kept: Optional[KeptGraph] = None
+
+    @contextlib.contextmanager
+    def hold(self, key: tuple) -> Iterator[KeptGraph]:
+        """What is kept for ``key`` (new and empty where it was not), for
+        this caller alone until the block ends: no two threads replay or
+        capture one graph at once."""
+        with self._lock:
+            if self._kept is None or self._kept.key != key:
+                self._kept = KeptGraph(key)
+            try:
+                yield self._kept
+            except BaseException:
+                self._kept = None
+                raise
+
+
+GRAPHS = GemmGraphs()  # the process's: each rank probes one device with one key
+
+
 @spans.traced("probe.mxu")
 def run_mxu_probe(
     size: int = 4096,
@@ -167,36 +240,48 @@ def run_mxu_probe(
 
     TFLOP/s = 2·size³·inner_iters / t. A health signal, not a benchmark.
     Operands come from a ``torch.Generator`` seeded 0 (entries unit-normal,
-    so each product scales RMS by ~sqrt(size), undone by the rescale)."""
+    so each product scales RMS by ~sqrt(size), undone by the rescale).
+
+    On a CUDA device the chain is timed as a CUDA graph (see
+    probe/timing.py), captured in the first cycle of a key and replayed in
+    every later one (:class:`GemmGraphs`). Each cycle redraws the operands
+    into the kept tensors and runs the chain eagerly once, fenced and checked,
+    before the graph's timed launches; a graph whose output is not finite is
+    dropped and captured again next cycle."""
     try:
-        with spans.span("probe.mxu.setup"):
-            device = resolve_device(device)
-            inv_scale = 1.0 / (size**0.5)
-            gen = torch.Generator(device=device).manual_seed(0)
-            a = torch.randn((size, size), generator=gen, device=device).to(torch.bfloat16)
-            b = torch.randn((size, size), generator=gen, device=device).to(torch.bfloat16)
+        with contextlib.ExitStack() as held:
+            with spans.span("probe.mxu.setup"):
+                device = resolve_device(device)
+                on_card = device.type == "cuda"
+                inv_scale = 1.0 / (size**0.5)
+                if on_card:
+                    kept = held.enter_context(GRAPHS.hold((device_id(device), size, inner_iters)))
+                    a, b = kept.draw(size, device)
+                else:
+                    a, b = mxu_operands(size, device)
 
-            def step(ab):
-                return mxu_chain(ab[0], ab[1], inner_iters, inv_scale)
+                def step(ab):
+                    return mxu_chain(ab[0], ab[1], inner_iters, inv_scale)
 
-            out = step((a, b))
-            fetch_scalar(out)  # warmup (fenced)
-            with spans.sync():
-                finite = bool(torch.isfinite(out.float()).all())
-            if device.type == "cuda":
-                # one graph launch per timed run: see probe/timing.py
-                with spans.span("probe.mxu.capture"):
-                    graph, graph_out = capture_graph(lambda: step((a, b)), device)
-            else:
-                baseline_ms = fence_baseline_ms(device)
-        with spans.span("probe.mxu.timed"):
-            if device.type == "cuda":
-                stats = TimedStats.of([ms / 1e3 for ms in graph_times_ms(graph, device, iters)])
-            else:
-                stats = timed_fenced(step, (a, b), iters, baseline_ms)
-        if device.type == "cuda":
-            with spans.sync():
-                finite = finite and bool(torch.isfinite(graph_out.float()).all())
+                out = step((a, b))
+                fetch_scalar(out)  # warmup (fenced)
+                with spans.sync():
+                    finite = bool(torch.isfinite(out.float()).all())
+                if on_card:
+                    # one graph launch per timed run: see probe/timing.py
+                    graph, graph_out = kept.capture(lambda: step((a, b)), device)
+                else:
+                    baseline_ms = fence_baseline_ms(device)
+            with spans.span("probe.mxu.timed"):
+                if on_card:
+                    stats = TimedStats.of([ms / 1e3 for ms in graph_times_ms(graph, device, iters)])
+                else:
+                    stats = timed_fenced(step, (a, b), iters, baseline_ms)
+            if on_card:
+                with spans.sync():
+                    finite = finite and bool(torch.isfinite(graph_out.float()).all())
+                if not finite:
+                    kept.graph = kept.out = None
         tmin = stats[0]
         flops = 2.0 * size**3 * inner_iters
         return {

@@ -16,6 +16,12 @@ tripped a trend alert. So the GEMM chain is captured into a CUDA graph and
 launched by one C call that records CUDA events around it
 (:func:`graph_times_ms`), as the HBM kernels time themselves
 (``kernels/hbm.py``).
+
+The graph is captured once per key (device, size, inner iterations) and
+replayed in every later cycle (``probe/ici.py:GemmGraphs``). A capture each
+cycle cost the cycle more than its own time: ``torch.cuda.graph`` synchronizes
+the device and empties the caching allocator on entry, so every cycle handed
+the HBM stages' cached buffers back to the driver and allocated them again.
 """
 
 from __future__ import annotations
@@ -61,9 +67,11 @@ def fence_baseline_ms(device: Optional[torch.device] = None, samples: int = 3) -
 
 
 def capture_graph(fn, device: torch.device):
-    """``fn()`` captured into a CUDA graph: ``(graph, output)``. One run on a
-    side stream first, as capture requires (the GEMM library makes its
-    handles and workspace outside the capture). The capture is thread-local:
+    """``fn()`` captured into a CUDA graph: ``(graph, output)``, to be kept and
+    replayed: each call synchronizes the device and empties the caching
+    allocator (``torch.cuda.graph``'s entry). One run on a side stream
+    first, as capture requires (the GEMM library makes its handles and
+    workspace outside the capture). The capture is thread-local:
     other threads of the process (the watcher's analytics requests) keep
     allocating, copying and synchronizing their own streams meanwhile, which
     a global capture forbids and which would invalidate it."""

@@ -195,9 +195,11 @@ def test_analytics_runs_on_its_own_stream(cuda_device):
 
 
 def test_graph_capture_beside_analytics_threads(cuda_device):
-    """The probe captures its GEMM chain into a CUDA graph every cycle while
-    the watcher's HTTP threads serve analytics requests (copies, launches and
-    a stream synchronize each). Neither may break the other."""
+    """The probe captures its GEMM chain into a CUDA graph, and replays the
+    kept one, while the watcher's HTTP threads serve analytics requests
+    (copies, launches and a stream synchronize each). Neither may break the
+    other. The size alternates in pairs, so every other reading captures
+    afresh (a new key) and the rest replay."""
     import threading
 
     from k8s_watcher_tpu_torch.analytics import FleetKernels, Scenario, build_masks, resolve_backend
@@ -222,7 +224,8 @@ def test_graph_capture_beside_analytics_threads(cuda_device):
     for t in threads:
         t.start()
     try:
-        readings = [run_mxu_probe(256, inner_iters=8, iters=3, device=cuda_device) for _ in range(20)]
+        readings = [run_mxu_probe(size, inner_iters=8, iters=3, device=cuda_device)
+                    for size in [256, 256, 512, 512] * 5]
     finally:
         stop.set()
         for t in threads:
@@ -259,26 +262,43 @@ def test_graph_timing_ignores_busy_host_cores(cuda_device):
     assert busy > 0.9 * quiet, (quiet, busy)
 
 
-def test_a_cycle_on_card_counts_its_capture_and_device_allocations(cuda_device):
-    """On the card the GEMM stage captures its graph inside its set-up, the
-    cycle counts the capture and the caching allocator's device allocations,
-    and no readback span falls inside a timed launch."""
-    from k8s_watcher_tpu_torch.probe import spans
+def test_a_cycle_on_card_counts_its_capture_and_device_allocations(cuda_device, monkeypatch):
+    """On the card the GEMM stage captures its graph inside its set-up in the
+    first cycle of its key, and replays it after: later cycles count no
+    capture and no device allocation (a capture empties the caching
+    allocator). The kept graph's output stays the chain's, and no readback
+    span falls inside a timed launch."""
+    from k8s_watcher_tpu_torch.probe import ici, spans
 
+    monkeypatch.setattr(ici, "GRAPHS", ici.GemmGraphs())  # a first cycle, whatever ran before
     config = TpuConfig(probe_payload_bytes=1 << 20, probe_hbm_bytes=32 << 20)
     agent = ProbeAgent(config, environment="development", sink=lambda n: None, device=cuda_device)
-    agent.run_once()
-    agent.run_once()
-    cycle = spans.RECORDER.last()
-    (capture,) = cycle.named("probe.mxu.capture")
+    cycles, entries = [], []
+    for _ in range(3):
+        assert agent.run_once().healthy
+        cycles.append(spans.RECORDER.last())
+        entries.append(agent.recent_cycles(1)[0])
+    (capture,) = cycles[0].named("probe.mxu.capture")
     assert capture.parent.name == "probe.mxu.setup"
-    counters = cycle.counters
-    assert counters["graph_captures"] == 1
-    assert counters["device_allocs"] >= 0
-    entry = agent.recent_cycles(1)[0]
-    assert entry["graph_captures"] == 1 and entry["device_allocs"] == counters["device_allocs"]
-    assert entry["syncs"] == counters["syncs"] == len(cycle.named("probe.sync"))
-    for name in ("probe.mxu.timed", "probe.hbm_read.timed", "probe.hbm_write.timed"):
-        (timed,) = cycle.named(name)
-        assert not any(s.parent is timed for s in cycle.named("probe.sync")), name
-    print("card cycle counters:", counters, "stages_ms:", entry["stages_ms"])
+    assert [c.counters["graph_captures"] for c in cycles] == [1, 0, 0]
+    assert [e["graph_captures"] for e in entries] == [1, 0, 0]
+    assert [len(c.named("probe.mxu.capture")) for c in cycles[1:]] == [0, 0]
+    assert cycles[0].counters["device_allocs"] >= 0
+    assert [c.counters["device_allocs"] for c in cycles[1:]] == [0, 0]
+    for cycle, entry in zip(cycles, entries):
+        counters = cycle.counters
+        assert entry["device_allocs"] == counters["device_allocs"]
+        assert entry["syncs"] == counters["syncs"] == len(cycle.named("probe.sync"))
+        for name in ("probe.mxu.timed", "probe.hbm_read.timed", "probe.hbm_write.timed"):
+            (timed,) = cycle.named(name)
+            assert not any(s.parent is timed for s in cycle.named("probe.sync")), name
+    size, inner = config.probe_matmul_size, config.probe_matmul_inner_iters
+    with ici.GRAPHS.hold((cuda_device.index, size, inner)) as kept:
+        got = kept.out.double()
+        carry, b = (t.double() for t in kept.operands)
+    for _ in range(inner):
+        carry = carry @ b / size**0.5
+    gap = float(torch.linalg.norm(got - carry) / torch.linalg.norm(carry))
+    assert bool(torch.isfinite(got).all()) and gap < 0.03, gap
+    print("card cycles: counters", [c.counters for c in cycles], "gemm_chain_gap", gap,
+          "stages_ms", [e["stages_ms"] for e in entries])
