@@ -255,12 +255,16 @@ int k8w_hbm_fill(const float* seed, float* out, long long n_elems, int repeats, 
     return static_cast<int>(w.close(elapsed_ms, s));
 }
 
-// One launch of an instantiated CUDA graph, timed (elapsed_ms required).
-// The window opens behind a gate: a one-thread kernel holds the stream until
-// the host has queued the start event, the graph and the end event (or
+// One launch of an instantiated CUDA graph, timed (elapsed_ms required),
+// after one untimed launch of `before_exec` where it is not null. The window
+// opens behind a gate: a one-thread kernel holds the stream until the host
+// has queued `before_exec`, the start event, the graph and the end event (or
 // GATE_LIMIT_NS pass), so the window times the graph and not the host's
-// submission of it, which stretches when the host's cores are contended.
-int k8w_time_graph(void* graph_exec, void* stream, float* elapsed_ms) {
+// submission of it, which stretches when the host's cores are contended. A
+// collective's `before_exec` is a barrier over its members (one tiny
+// collective), so the window also leaves out the wait for the slowest
+// member's host to open its own gate.
+int k8w_time_graph(void* graph_exec, void* before_exec, void* stream, float* elapsed_ms) {
     static thread_local int* gate = nullptr;  // host-mapped flag, one per timing thread
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     cudaError_t e = cudaSuccess;
@@ -272,6 +276,7 @@ int k8w_time_graph(void* graph_exec, void* stream, float* elapsed_ms) {
     gate_kernel<<<1, 1, 0, s>>>(gate_dev);
     Window w;
     e = cudaGetLastError();
+    if (e == cudaSuccess && before_exec) e = cudaGraphLaunch(static_cast<cudaGraphExec_t>(before_exec), s);
     if (e == cudaSuccess) e = w.open(elapsed_ms, s);
     if (e == cudaSuccess) e = cudaGraphLaunch(static_cast<cudaGraphExec_t>(graph_exec), s);
     if (e == cudaSuccess && elapsed_ms) e = cudaEventRecord(w.end, s);

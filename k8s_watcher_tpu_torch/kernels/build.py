@@ -126,7 +126,7 @@ def load() -> ctypes.CDLL:
             lib.k8w_hbm_read_sweep.argtypes = [ptr, i64, i32, ptr, i32, ptr, ptr, f32p]
             lib.k8w_hbm_fill.argtypes = [ptr, ptr, i64, i32, i32, ptr, f32p]
             lib.k8w_hbm_blocksums.argtypes = [ptr, i32, ptr, ptr]
-            lib.k8w_time_graph.argtypes = [ptr, ptr, f32p]
+            lib.k8w_time_graph.argtypes = [ptr, ptr, ptr, f32p]
             for fn in (lib.k8w_hbm_read_sweep, lib.k8w_hbm_fill, lib.k8w_hbm_blocksums, lib.k8w_time_graph):
                 fn.restype = i32
             lib.k8w_error_string.argtypes = [i32]

@@ -16,6 +16,10 @@
 - ``make_slice_pair_probe``: the cross-slice hop between two slices only.
 - ``make_pair_probe``: a chained exchange of one scalar between two ranks,
   the per-link primitive of the link walk (``probe/links.py``).
+- ``make_barrier``, ``make_pair_barrier``: one tiny all-reduce or exchange
+  that ends on the device once every member has queued it, ahead of a call
+  timed on the device (``probe/timing.py:collective_times_ms``);
+  ``all_agree``, ``pair_agree``: whether a flag holds on every member.
 
 Point-to-point exchanges run through ``dist.batch_isend_irecv`` on the
 default group, so a link or a slice pair needs no communicator of its own
@@ -25,7 +29,8 @@ made once per grid: on a ``(slices, hosts, gpus)`` grid, one per slice and
 one per ``(host, gpu)`` position.
 
 Each factory takes an optional ``IciFaultSpec`` that injects slow or corrupt
-behaviour on one rank.
+behaviour on one rank. Every collective call, and every batched exchange,
+counts one in the open cycle's ``collectives`` counter (probe/spans.py).
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ import torch.distributed as dist
 from k8s_watcher_tpu_torch import carry
 from k8s_watcher_tpu_torch.faults.ici import IciFaultSpec, apply_fault
 from k8s_watcher_tpu_torch.parallel.mesh import Mesh, own_subgroup
+from k8s_watcher_tpu_torch.probe import spans
 
 Probe = Callable[[torch.Tensor], torch.Tensor]
 
@@ -78,6 +84,7 @@ def make_subaxis_psum_probe(
         y = apply_fault(x, fault, rank).clone()
         for _ in range(inner_iters):
             if group is not None:
+                spans.count("collectives")
                 dist.all_reduce(y, op=dist.ReduceOp.SUM, group=group)
             y.div_(k)
         return y
@@ -100,6 +107,7 @@ def make_allreduce_bandwidth_probe(
 
     def probe(x: torch.Tensor) -> torch.Tensor:
         y = apply_fault(x, fault, rank).clone()
+        spans.count("collectives")
         dist.all_reduce(y, op=dist.ReduceOp.SUM, group=mesh.group)
         return y
 
@@ -110,6 +118,7 @@ def _exchange(send: torch.Tensor, recv: torch.Tensor, peer: int) -> None:
     """Send ``send`` to ``peer`` and receive its tensor into ``recv``, both
     posted together so two ranks exchanging with each other cannot block."""
     ops = [dist.P2POp(dist.isend, send, peer), dist.P2POp(dist.irecv, recv, peer)]
+    spans.count("collectives")
     for request in dist.batch_isend_irecv(ops):
         request.wait()
 
@@ -146,10 +155,12 @@ def make_hierarchical_probe(
     def probe(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         y = apply_fault(x, fault, rank).clone()
         if ici_group is not None:
+            spans.count("collectives")
             dist.all_reduce(y, op=dist.ReduceOp.SUM, group=ici_group)
         vec = torch.zeros((n_slices,), dtype=y.dtype, device=y.device)
         vec[my_slice] = y[0]
         if dcn_group is not None:
+            spans.count("collectives")
             dist.all_reduce(vec, op=dist.ReduceOp.SUM, group=dcn_group)
         return vec, vec.sum()
 
@@ -213,6 +224,7 @@ def make_slice_pair_probe(
             _exchange(y, peer_value, peer)
             y.add_(peer_value).div_(2.0)
         if ici_group is not None:
+            spans.count("collectives")
             dist.all_reduce(y, op=dist.ReduceOp.SUM, group=ici_group)
         _exchange(y, peer_value, peer)
         return y + peer_value
@@ -259,6 +271,51 @@ def pair_probe_input(rank_a: int, rank_b: int, device) -> torch.Tensor:
     if me not in (rank_a, rank_b):
         raise ValueError(f"rank {me} is not an end of the pair ({rank_a}, {rank_b})")
     return carry.rank_share(carry.psum_input(2), 0 if me == rank_a else 1, device)
+
+
+def make_barrier(group, device) -> Callable[[], None]:
+    """One all-reduce of a one-element int32 tensor over ``group``: on the
+    device it ends once every member has queued it."""
+    token = torch.zeros((1,), dtype=torch.int32, device=device)
+
+    def barrier() -> None:
+        spans.count("collectives")
+        dist.all_reduce(token, op=dist.ReduceOp.SUM, group=group)
+
+    return barrier
+
+
+def make_pair_barrier(rank_a: int, rank_b: int, device) -> Callable[[], None]:
+    """One exchange of a one-element int32 tensor between ranks ``a`` and
+    ``b``: on the device it ends once both have queued it. Only ``a`` and
+    ``b`` may call it."""
+    send = torch.zeros((1,), dtype=torch.int32, device=device)
+    recv = torch.zeros_like(send)
+
+    def barrier() -> None:
+        _exchange(send, recv, rank_b if dist.get_rank() == rank_a else rank_a)
+
+    return barrier
+
+
+def all_agree(ok: bool, device, group=None) -> bool:
+    """Whether ``ok`` holds on every member of ``group``: the MIN of a
+    one-element flag, all-reduced; every member must call it."""
+    flag = torch.full((1,), int(ok), dtype=torch.int32, device=device)
+    spans.count("collectives")
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+    with spans.sync():
+        return bool(flag.item())
+
+
+def pair_agree(ok: bool, rank_a: int, rank_b: int, device) -> bool:
+    """Whether ``ok`` holds on both ends of the pair ``(a, b)``, from one
+    exchange of a flag; only ``a`` and ``b`` may call it."""
+    mine = torch.full((1,), int(ok), dtype=torch.int32, device=device)
+    theirs = torch.zeros_like(mine)
+    _exchange(mine, theirs, rank_b if dist.get_rank() == rank_a else rank_a)
+    with spans.sync():
+        return bool(torch.minimum(mine, theirs).item())
 
 
 def allreduce_bus_bandwidth_gbps(payload_bytes: int, n_devices: int, seconds: float) -> float:

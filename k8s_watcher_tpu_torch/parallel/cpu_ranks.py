@@ -7,8 +7,9 @@ the target once and then forks the other ranks: a group costs one import of
 torch, not one per rank. The launcher forks before it has started any thread
 or touched a device, the one state in which ``fork`` is safe. Each rank joins
 a gloo group over a ``FileStore``, calls ``target(rank, world, **kwargs)``
-and writes what it returns as JSON. The launcher leads its own process group,
-so a hung rank is killed with the others at the time limit.
+and writes what it returns as JSON; the group ends once every rank's target
+has returned, unless a target has ended it. The launcher leads its own
+process group, so a hung rank is killed with the others at the time limit.
 
 Usage of the launcher (what :func:`run_cpu_ranks` runs):
 ``python -m k8s_watcher_tpu_torch.parallel.cpu_ranks <module:function> <world> <directory>``
@@ -110,8 +111,9 @@ def _launch(target: str, world: int, directory: str) -> int:
         result = fn(rank, world, **kwargs)
         with open(os.path.join(directory, f"{rank}.json"), "w") as fh:
             json.dump(result, fh, default=str)
-        dist.barrier()  # no rank tears the group down while a peer still talks to it
-        dist.destroy_process_group()
+        if dist.is_initialized():  # a target may end the group itself (probe_agent.run_loop does)
+            dist.barrier()  # no rank tears the group down while a peer still talks to it
+            dist.destroy_process_group()
     except BaseException:  # noqa: BLE001 — a forked rank must reach os._exit, never unwind into the launcher
         print(f"rank {rank} failed:", flush=True)
         traceback.print_exc()

@@ -8,6 +8,12 @@ gauges and flight recorder, and the same loop (``start``/``stop``, a
 heartbeat per completed cycle, a report observer). Under ``torchrun`` every
 rank runs the agent and joins the collectives; rank 0 reports for the
 group, any other rank only when its own view is unhealthy.
+
+In a group of several ranks every stage of a cycle is a collective, so no
+rank may leave the loop alone: a rank that left would leave its peers
+waiting in their next cycle's first collective. The loop's cycles end with a
+stop vote instead (:meth:`ProbeAgent._stop_vote`), and every rank leaves
+after the same cycle, once any of them has been asked to stop.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 
 import torch
+import torch.distributed as dist
 
 from k8s_watcher_tpu_torch.config import TpuConfig
 from k8s_watcher_tpu_torch.metrics import MetricsRegistry
@@ -44,6 +51,7 @@ from k8s_watcher_tpu_torch.probe.ici import run_ici_probe, run_mxu_probe
 from k8s_watcher_tpu_torch.probe.links import run_link_probe
 from k8s_watcher_tpu_torch.probe.multislice import run_multislice_probe
 from k8s_watcher_tpu_torch.probe.report import ProbeReport
+from k8s_watcher_tpu_torch.probe.timing import fetch_scalar
 from k8s_watcher_tpu_torch.probe.trend import TrendTracker
 from k8s_watcher_tpu_torch.remediate.policy import local_findings
 
@@ -58,6 +66,7 @@ PROFILE_SUFFIX = ".pt.trace.json"
 _FINDING_BYTES = 120
 
 
+@spans.traced("probe.gather")
 def gather_node_findings(report: ProbeReport, device=None) -> dict:
     """``str(rank) -> local findings`` of every rank on this rank's node that
     has any (remediate/policy.py:local_findings), from one fixed-size gather
@@ -104,6 +113,9 @@ class ProbeAgent:
         self.expected_platform = "cuda" if expected_platform == "auto" else expected_platform
         self.heartbeat = heartbeat or (lambda: None)
         self._stop = threading.Event()
+        # set once the loop has ended: on this rank's stop, or on its group's
+        self.stopped = threading.Event()
+        self._stop_agreed = False  # the last cycle's stop vote
         self._thread: Optional[threading.Thread] = None
         # optional per-report observer (remediation): sees every completed
         # report, healthy or not, on the agent thread
@@ -125,16 +137,43 @@ class ProbeAgent:
     # a 30 s agent fills the disk of the node it is meant to keep healthy
     MAX_PROFILE_RUNS = 20
 
-    def run_once(self) -> ProbeReport:
+    def run_once(self, *, vote: bool = False) -> ProbeReport:
         """One probe cycle, a ``probe.cycle`` span (probe/spans.py); traced
         with ``torch.profiler`` into a chrome trace under
         ``tpu.probe.profile_dir`` when that is set, the stages' spans as
         ranges in it. The flight recorder's entry is written once the cycle
-        has closed, with its spans' times and counters."""
+        has closed, with its spans' times and counters. With ``vote`` (the
+        loop's cycles) the cycle ends with :meth:`_stop_vote`, also when a
+        stage raised."""
         with spans.cycle(self.device):
-            report = self._run_profiled()
+            try:
+                report = self._run_profiled()
+            finally:
+                if vote:
+                    self._stop_agreed = self._stop_vote()
         self._record_cycle(report)
         return report
+
+    def _stop_vote(self) -> bool:
+        """Whether any rank of the group has been asked to stop: this rank's
+        stop as a flag, all-reduced (MAX) over the default group in a
+        ``probe.stop_vote`` span. Every rank of a group votes at the end of
+        each of the loop's cycles, so every rank learns of a stop at the same
+        cycle's end. A group of one rank has no peer to ask: its own stop
+        answers, with no collective and no device work. A vote that fails
+        (a peer gone) leaves this rank's own stop to answer."""
+        asked = self._stop.is_set()
+        if process_count() == 1:
+            return asked
+        with spans.span("probe.stop_vote"):
+            try:
+                flag = torch.full((1,), int(asked), dtype=torch.int32, device=self.device)
+                spans.count("collectives")
+                dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+                return fetch_scalar(flag) > 0
+            except Exception as exc:  # noqa: BLE001 — a broken group cannot agree; this rank decides alone
+                logger.error("The probe group's stop vote failed: %s", exc)
+                return asked
 
     def _run_profiled(self) -> ProbeReport:
         if not self.config.probe_profile_dir:
@@ -216,13 +255,15 @@ class ProbeAgent:
             report.trend_alerts = self._fold_trends(
                 ici, mxu, hbm, hbm_write, links, multislice, cycle_healthy=report.healthy
             )
-            if process_count() > 1:
-                # every rank, every cycle, armed or not: a collective that only
-                # armed ranks joined would hang the group
-                try:
-                    report.node_findings = gather_node_findings(report, self.device)
-                except Exception as exc:  # noqa: BLE001 — the cycle's readings stand without it
-                    logger.error("Gathering the node's local findings failed: %s", exc)
+        if process_count() > 1:
+            # every rank, every cycle, armed or not: a collective that only
+            # armed ranks joined would hang the group. A stage of its own
+            # (probe.gather), between the report's two spans
+            try:
+                report.node_findings = gather_node_findings(report, self.device)
+            except Exception as exc:  # noqa: BLE001 — the cycle's readings stand without it
+                logger.error("Gathering the node's local findings failed: %s", exc)
+        with spans.span("probe.report"):
             self.metrics.counter("probe_runs").inc()
             if ici.psum_rtt_ms >= 0:
                 self.metrics.histogram("probe_psum_rtt").record(ici.psum_rtt_ms / 1e3)
@@ -337,6 +378,7 @@ class ProbeAgent:
             ],
             "stages_ms": {name: round(ms, 3) for name, ms in cycle.stages_ms().items()},
             "syncs": cycle.counters["syncs"],
+            "collectives": cycle.counters["collectives"],
             "gc_ms": round(cycle.gc_ms(), 3),
             "device_allocs": cycle.counters.get("device_allocs"),
             "graph_captures": cycle.counters["graph_captures"],
@@ -351,16 +393,26 @@ class ProbeAgent:
         return entries[::-1][: max(0, n)]
 
     def _loop(self) -> None:
+        """Cycles until the stop: in a group of several ranks, until a
+        cycle's vote says that a rank was asked to stop (one asked during
+        the interval is heard at the end of the next cycle); in a group of
+        one rank, until this rank's own stop."""
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)  # the current device is per thread
-        while not self._stop.is_set():
-            try:
-                self._report(self.run_once())
-            except Exception as exc:  # noqa: BLE001 — one failed cycle must not end the loop
-                logger.error("Probe iteration failed: %s", exc)
-                self.metrics.counter("probe_errors").inc()
-            if self._stop.wait(self.config.probe_interval_seconds):
-                return
+        try:
+            while not self._stop.is_set() or process_count() > 1:
+                try:
+                    self._report(self.run_once(vote=True))
+                except Exception as exc:  # noqa: BLE001 — one failed cycle must not end the loop
+                    logger.error("Probe iteration failed: %s", exc)
+                    self.metrics.counter("probe_errors").inc()
+                if self._stop_agreed:
+                    if not self._stop.is_set():
+                        logger.info("The probe group agreed to stop; this rank stops with it")
+                    return
+                self._stop.wait(self.config.probe_interval_seconds)
+        finally:
+            self.stopped.set()
 
     def start(self) -> None:
         """Run a cycle every ``interval_seconds`` on a daemon thread."""
@@ -370,9 +422,10 @@ class ProbeAgent:
         self._thread.start()
 
     def stop(self) -> bool:
-        """Stop after the cycle in flight (waiting up to 5 s for it); False
-        when the loop thread is still running (a cycle stuck in a
-        collective), so the caller must not tear the group down."""
+        """Stop after the cycle in flight, with the rest of the group when
+        there is one (waiting up to 5 s for it); False when the loop thread
+        is still running (a cycle stuck in a collective), so the caller must
+        not tear the group down."""
         self._stop.set()
         thread, self._thread = self._thread, None
         if thread is None:

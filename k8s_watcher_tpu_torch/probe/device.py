@@ -124,6 +124,7 @@ def all_gather_rows(raw: bytes, device: Optional[torch.device] = None) -> List[b
         buf[: len(raw)] = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
     n = process_count()
     gathered = torch.empty(n * width, dtype=torch.uint8, device=device)
+    spans.count("collectives")
     dist.all_gather_into_tensor(gathered, buf.to(device))
     with spans.sync():
         rows = gathered.cpu().view(n, width).numpy()

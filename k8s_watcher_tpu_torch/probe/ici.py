@@ -4,7 +4,10 @@ Measurement discipline (see probe/timing.py): the first call is the warmup,
 each timed call chains ``inner_iters`` dependent operations, and each is
 fenced by a one-element readback with the median fence cost subtracted. The
 minimum is reported as the RTT (least-noise estimate), beside mean, max and
-the median headline.
+the median headline. A group of several ranks on CUDA keeps each timed call
+of the chain and of the bandwidth all-reduce as a CUDA graph and times it on
+the device instead, behind a gate after a barrier
+(``probe/timing.py:CollectiveGraphs``).
 
 On Hopper the collectives are NCCL's and the GEMM is cuBLAS's through
 ``torch.matmul``, as the JAX package left both to XLA rather than Pallas.
@@ -26,6 +29,8 @@ from k8s_watcher_tpu_torch.parallel.collectives import (
     allreduce_bus_bandwidth_gbps,
     bandwidth_probe_input,
     make_allreduce_bandwidth_probe,
+    all_agree,
+    make_barrier,
     make_psum_probe,
     psum_probe_input,
 )
@@ -37,8 +42,11 @@ from k8s_watcher_tpu_torch.probe.timing import (
     capture_graph,
     fence_baseline_ms,
     fetch_scalar,
+    COLLECTIVE_GRAPHS,
+    KeptCollective,
     graph_times_ms,
     timed_fenced,
+    times_on_device,
 )
 
 logger = logging.getLogger(__name__)
@@ -66,6 +74,18 @@ class IciProbeResult:
         return dataclasses.asdict(self)
 
 
+def _kept(key: tuple, fn, x, mesh: Mesh) -> KeptCollective:
+    """``fn(x)`` as this rank's kept graph for ``key``, its barrier one
+    all-reduce over the mesh's group."""
+    return COLLECTIVE_GRAPHS.get((device_id(mesh.device),) + key, fn, x, make_barrier(mesh.group, mesh.device),
+                                 lambda ok: all_agree(ok, mesh.device, mesh.group))
+
+
+def _device_timed(kept: KeptCollective, iters: int) -> TimedStats:
+    """Seconds of ``iters`` launches of a kept graph, timed on the device."""
+    return TimedStats.of([ms / 1e3 for ms, _ in kept.times_ms(iters)])
+
+
 @spans.traced("probe.ici")
 def run_ici_probe(
     mesh: Optional[Mesh] = None,
@@ -78,7 +98,9 @@ def run_ici_probe(
 ) -> IciProbeResult:
     """Latency (chained tiny all-reduces) + bandwidth (one large all-reduce).
 
-    Bandwidth stays 0.0 in a group of one rank: there is no link to measure."""
+    Bandwidth stays 0.0 in a group of one rank: there is no link to measure.
+    Its timed launches are a ``probe.ici.bandwidth`` span inside
+    ``probe.ici.timed``."""
     try:
         with spans.span("probe.ici.setup"):
             if mesh is None:
@@ -89,7 +111,12 @@ def run_ici_probe(
             t0 = time.perf_counter()
             psum = make_psum_probe(mesh, inner_iters, fault)
             x = psum_probe_input(mesh)
-            result = psum(x)
+            graphed = times_on_device(mesh.device, n)
+            if graphed:
+                chain = _kept(("psum", inner_iters, fault), psum, x, mesh)
+                result = chain.replay()
+            else:
+                result = psum(x)
             fetch_scalar(result)  # warmup (fenced)
             compile_ms = 1e3 * (time.perf_counter() - t0)
 
@@ -97,9 +124,10 @@ def run_ici_probe(
             with spans.sync():
                 psum_correct = bool(np.allclose(result.cpu().numpy()[0], expected))
 
-            baseline_ms = fence_baseline_ms(mesh.device)
+            # a graph is timed on the device: no fence to subtract
+            baseline_ms = 0.0 if graphed else fence_baseline_ms(mesh.device)
         with spans.span("probe.ici.timed"):
-            rtt_stats = timed_fenced(psum, x, iters, baseline_ms)
+            rtt_stats = _device_timed(chain, iters) if graphed else timed_fenced(psum, x, iters, baseline_ms)
         rtt_min, rtt_mean, rtt_max = (t / inner_iters for t in rtt_stats)
         unreliable = rtt_stats.unreliable
 
@@ -109,9 +137,17 @@ def run_ici_probe(
             with spans.span("probe.ici.setup"):
                 bw_fn = make_allreduce_bandwidth_probe(mesh, payload_bytes, fault)
                 payload = bandwidth_probe_input(mesh, payload_bytes)
-                fetch_scalar(bw_fn(payload))  # warmup
-            with spans.span("probe.ici.timed"):
-                bw_stats = timed_fenced(bw_fn, payload, max(3, iters // 3), baseline_ms)
+                if graphed:
+                    bandwidth = _kept(("bandwidth", payload_bytes, fault), bw_fn, payload, mesh)
+                    fetch_scalar(bandwidth.replay())  # warmup
+                else:
+                    fetch_scalar(bw_fn(payload))  # warmup
+            bw_iters = max(3, iters // 3)
+            with spans.span("probe.ici.timed"), spans.span("probe.ici.bandwidth"):
+                if graphed:
+                    bw_stats = _device_timed(bandwidth, bw_iters)
+                else:
+                    bw_stats = timed_fenced(bw_fn, payload, bw_iters, baseline_ms)
             bw_gbps = allreduce_bus_bandwidth_gbps(payload_bytes, n, bw_stats[0])
             bw_gbps_median = allreduce_bus_bandwidth_gbps(payload_bytes, n, bw_stats.median)
             unreliable = unreliable or bw_stats.unreliable

@@ -42,11 +42,11 @@ import torch
 import torch.distributed as dist
 
 from k8s_watcher_tpu_torch.faults.ici import IciFaultSpec
-from k8s_watcher_tpu_torch.parallel.collectives import make_pair_probe, pair_probe_input
+from k8s_watcher_tpu_torch.parallel.collectives import make_pair_barrier, make_pair_probe, pair_agree, pair_probe_input
 from k8s_watcher_tpu_torch.parallel.mesh import Mesh, host_chip_mesh
 from k8s_watcher_tpu_torch.probe import spans
-from k8s_watcher_tpu_torch.probe.device import resolve_device
-from k8s_watcher_tpu_torch.probe.timing import fetch_scalar, read_scalar
+from k8s_watcher_tpu_torch.probe.device import device_id, resolve_device
+from k8s_watcher_tpu_torch.probe.timing import COLLECTIVE_GRAPHS, fetch_scalar, read_scalar, times_on_device
 
 logger = logging.getLogger(__name__)
 
@@ -71,6 +71,7 @@ def _all_ranks_ready(mesh: Mesh, prep_ok: bool) -> bool:
     if dist.get_world_size() == 1:
         return prep_ok
     flag = torch.full((1,), 1.0 if prep_ok else 0.0, dtype=torch.float32, device=mesh.device)
+    spans.count("collectives")
     dist.all_reduce(flag, op=dist.ReduceOp.MIN)
     return fetch_scalar(flag) >= 1.0
 
@@ -177,21 +178,27 @@ def classify_links(
     return suspects, suspect_devices
 
 
-def _timed_pair(fn, x, expected: float, iters: int, inner_iters: int) -> Tuple[float, float, bool]:
+def _timed_pair(fn, x, expected: float, iters: int, inner_iters: int, kept=None) -> Tuple[float, float, bool]:
     """(min_per_hop_s, mean_per_hop_s, correct) over ``iters`` fenced calls.
 
-    The readback is the completion fence. Its cost is deliberately not
+    With ``kept`` (CUDA: the call as a kept graph, probe/timing.py:
+    CollectiveGraphs) each launch is timed on the device, behind a gate
+    after one exchange that waits for the peer. Without, on the host: the
+    readback is the completion fence. Its cost is deliberately not
     subtracted: every link carries the same fence, so the outlier test
     (factor x median across links) cancels it, whereas subtracting a noisy
     baseline can clamp fast links to ~0 and turn fence variance into false
     "slow" suspects."""
-    times, correct = [], True
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        out = read_scalar(fn(x))
-        times.append(time.perf_counter() - t0)
-        if abs(out - expected) > 1e-3 * max(1.0, abs(expected)):
-            correct = False
+    if kept is not None:
+        samples = [(ms / 1e3, value) for ms, value in kept.times_ms(iters)]
+    else:
+        samples = []
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            value = read_scalar(fn(x))
+            samples.append((time.perf_counter() - t0, value))
+    times = [t for t, _ in samples]
+    correct = all(abs(value - expected) <= 1e-3 * max(1.0, abs(expected)) for _, value in samples)
     return min(times) / inner_iters, (sum(times) / len(times)) / inner_iters, correct
 
 
@@ -219,6 +226,7 @@ def merge_owned_records(
     buf[-1, 0] = 1.0 if flag else 0.0
     world = dist.get_world_size()
     gathered = torch.empty((world * buf.shape[0], 3), dtype=torch.float32, device=mesh.device)
+    spans.count("collectives")
     dist.all_gather_into_tensor(gathered, buf.to(mesh.device))
     with spans.sync():
         rows = gathered.cpu().view(world, buf.shape[0], 3).numpy()
@@ -296,6 +304,7 @@ def run_link_probe(
         # EXECUTION, in the global order on every rank, so overlapping pairs
         # meet deterministically.
         compile_s = 0.0
+        graphed = times_on_device(mesh.device, mesh.size)
         for axis, name, a, b, owner, fn, x, expected in prepared:
             if not run_links:
                 observed.append(LinkResult(
@@ -304,12 +313,19 @@ def run_link_probe(
                 ))
                 continue
             try:
+                kept = None
                 with spans.span("probe.links.setup"):
                     t0 = time.perf_counter()
-                    fetch_scalar(fn(x))  # warm exchange: NCCL connects a pair on first use
+                    if graphed:  # a capture's first run connects the pair
+                        kept = COLLECTIVE_GRAPHS.get(
+                            (device_id(mesh.device), "pair", name, inner_iters, fault), fn, x,
+                            make_pair_barrier(a, b, mesh.device), lambda ok: pair_agree(ok, a, b, mesh.device))
+                        fetch_scalar(kept.replay())
+                    else:
+                        fetch_scalar(fn(x))  # warm exchange: NCCL connects a pair on first use
                     compile_s += time.perf_counter() - t0
                 with spans.span("probe.links.timed"):
-                    rtt_min, rtt_mean, correct = _timed_pair(fn, x, expected, iters, inner_iters)
+                    rtt_min, rtt_mean, correct = _timed_pair(fn, x, expected, iters, inner_iters, kept)
             except Exception as exc:  # noqa: BLE001 — a failed exchange errors on both ends
                 logger.warning("Link probe %s failed: %s", name, exc)
                 observed.append(LinkResult(

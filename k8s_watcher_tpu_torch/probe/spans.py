@@ -19,7 +19,9 @@ is opened.
 
 Each cycle's counters: ``syncs`` (its ``probe.sync`` spans: the blocking
 readbacks outside the timed launches, which read back through the bare
-fence), ``graph_captures``, ``device_allocs`` (the change in the CUDA caching
+fence), ``collectives`` (the rank's collective calls and batched
+point-to-point exchanges; none in a group of one rank), ``graph_captures``,
+``device_allocs`` (the change in the CUDA caching
 allocator's ``num_device_alloc`` across the cycle; CUDA only) and ``gc_ms``:
 the interpreter's collections during the cycle, on every thread (a
 collection on another thread holds the probe thread through the interpreter
@@ -89,7 +91,7 @@ class Cycle:
     def __init__(self, span: Span):
         self.span = span
         self.spans: List[Span] = []
-        self.counters: Dict[str, object] = {"graph_captures": 0}
+        self.counters: Dict[str, object] = {"graph_captures": 0, "collectives": 0}
 
     @property
     def start(self) -> float:

@@ -22,18 +22,39 @@ replayed in every later cycle (``probe/ici.py:GemmGraphs``). A capture each
 cycle cost the cycle more than its own time: ``torch.cuda.graph`` synchronizes
 the device and empties the caching allocator on entry, so every cycle handed
 the HBM stages' cached buffers back to the driver and allocated them again.
+
+The collectives of a group of several ranks on CUDA are timed on the device
+too, as CUDA graphs kept across cycles (:class:`CollectiveGraphs`). Timed on
+the host, a round of the latency chain on four H100s of one node read
+0.12-0.57 ms where NVLink takes microseconds: each call's reading is the
+slowest rank's submission of it, and its host's stalls, so a quiet node's
+readings drifted past the trend tracker's factors in about half its cycles.
+Submitted call by call, even when timed on the device, the cycle's ~250
+collective calls a rank took 50-140 ms of host time, which rose and fell with
+the host's speed from run to run. A kept graph holds a timed call's whole
+chain (a latency chain's rounds, a link's exchanges); :func:`collective_times_ms`
+launches it behind the gate after a barrier graph (one tiny collective over
+the same members), so the window starts once every member has arrived and
+times the call as the fabric runs it, for one C call of host work. A group
+of one rank measures no fabric and keeps the host's clock (its readings fold
+into no trend).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import logging
 import statistics
+import threading
 import time
-from typing import Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
 from k8s_watcher_tpu_torch.probe import spans
+
+logger = logging.getLogger(__name__)
 
 
 def read_scalar(out) -> float:
@@ -100,9 +121,112 @@ def graph_times_ms(graph, device: torch.device, iters: int) -> list:
     with torch.cuda.device(device):
         for _ in range(iters):
             ms = ctypes.c_float()
-            build.check(lib, lib.k8w_time_graph(exec_handle, stream, ctypes.byref(ms)), "graph")
+            build.check(lib, lib.k8w_time_graph(exec_handle, None, stream, ctypes.byref(ms)), "graph")
             times.append(ms.value)
     return times
+
+
+def times_on_device(device: torch.device, n_ranks: int) -> bool:
+    """Whether the collectives of a group of ``n_ranks`` on ``device`` are
+    timed on the device, as kept CUDA graphs (:class:`CollectiveGraphs`),
+    rather than fenced on the host: a group of several CUDA ranks."""
+    return device.type == "cuda" and n_ranks > 1
+
+
+def collective_times_ms(graph, out: torch.Tensor, barrier, iters: int, device: torch.device) -> list:
+    """``[(ms, value), ...]`` of ``iters`` launches of a collective's
+    ``graph``, each timed by one C call (``k8w_time_graph``) behind the gate
+    after one launch of the ``barrier`` graph, then fenced by reading the
+    first element of ``out`` (the graph's output) back: ``value``. The window
+    holds neither the host's submission nor the wait for the other members'
+    arrival."""
+    from k8s_watcher_tpu_torch.kernels import build
+
+    lib = build.load()
+    exec_handle, before = graph.raw_cuda_graph_exec(), barrier.raw_cuda_graph_exec()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    samples = []
+    with torch.cuda.device(device):
+        for _ in range(iters):
+            ms = ctypes.c_float()
+            build.check(lib, lib.k8w_time_graph(exec_handle, before, stream, ctypes.byref(ms)), "collective graph")
+            samples.append((ms.value, read_scalar(out)))
+    return samples
+
+
+@dataclasses.dataclass
+class KeptCollective:
+    """One timed call of a collective as a CUDA graph, with the barrier
+    graph launched ahead of each timed launch; ``x`` is the input the graph
+    reads, ``out`` what it writes."""
+
+    x: torch.Tensor
+    graph: object
+    out: torch.Tensor
+    barrier: object
+
+    def replay(self) -> torch.Tensor:
+        """One untimed launch; ``out``."""
+        self.graph.replay()
+        return self.out
+
+    def times_ms(self, iters: int) -> list:
+        """:func:`collective_times_ms` of ``iters`` launches."""
+        return collective_times_ms(self.graph, self.out, self.barrier, iters, self.x.device)
+
+
+class CollectiveGraphs:
+    """The process's collective graphs, kept from one cycle to the next.
+
+    A stage's timed call is the same every cycle (its members, sizes and
+    input), so it is captured once, in the first cycle of its key, and
+    replayed after; later cycles make no call into ``torch.distributed``
+    for it. Every member captures the same keys in the same order: a capture
+    runs the call once first (``capture_graph``), which connects its peers.
+    The members then agree that each has captured, so none replays a graph
+    that a peer lacks. Graphs hold the default group's communicators: a new
+    default group drops them all."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._world = None
+        self._kept: Dict[tuple, KeptCollective] = {}
+
+    def get(self, key: tuple, fn, x: torch.Tensor, barrier: Callable[[], None],
+            agree: Callable[[bool], bool]) -> KeptCollective:
+        """The kept call ``fn(x)`` for ``key``, captured where none is (with
+        ``barrier()`` as its barrier graph, then ``agree(captured)`` over
+        its members); a kept one reads ``x`` copied into its input."""
+        import torch.distributed as dist
+
+        with self._lock:
+            if self._world is not dist.group.WORLD:
+                self._world, self._kept = dist.group.WORLD, {}
+            kept = self._kept.get(key)
+        if kept is not None:
+            kept.x.copy_(x)
+            return kept
+        kept = None
+        try:
+            graph, out = capture_graph(lambda: fn(x), x.device)
+            barrier_graph, _ = capture_graph(barrier, x.device)
+            kept = KeptCollective(x, graph, out, barrier_graph)
+        except Exception as exc:  # noqa: BLE001 — agreed on below: every member raises alike
+            logger.warning("Capturing the collective %s failed: %s", key, exc)
+        if not agree(kept is not None):
+            raise RuntimeError(f"the collective {key} is not captured on every member")
+        with self._lock:
+            self._kept[key] = kept
+        return kept
+
+    def drop(self) -> None:
+        """Let go of every kept graph: before the default group is destroyed,
+        so no graph outlives the communicators it launches on."""
+        with self._lock:
+            self._world, self._kept = None, {}
+
+
+COLLECTIVE_GRAPHS = CollectiveGraphs()
 
 
 class TimedStats(tuple):

@@ -19,7 +19,9 @@ process per host has.
   ``/metrics``, ``/healthz``, ``/debug/trend``, ``/debug/probes``, and
   ``/debug/remediation`` when remediation is armed) and, with
   ``tpu.remediation.enabled``, the remediation policy after every cycle.
-  SIGINT or SIGTERM stops it and the command exits 0.
+  SIGINT or SIGTERM stops it and the command exits 0. Under ``torchrun`` the
+  ranks stop together: a rank asked to stop says so in the stop vote that
+  ends each cycle, and every rank leaves after that cycle.
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from k8s_watcher_tpu_torch.notify.dispatcher import Dispatcher, build_notifier
 from k8s_watcher_tpu_torch.parallel.mesh import initialize_process_group
 from k8s_watcher_tpu_torch.probe.agent import ProbeAgent
 from k8s_watcher_tpu_torch.probe.device import local_rank, process_count, resolve_device
+from k8s_watcher_tpu_torch.probe.timing import COLLECTIVE_GRAPHS
 from k8s_watcher_tpu_torch.remediate import ProbeRemediationPolicy, build_actuator, build_policy
 from k8s_watcher_tpu_torch.status import Liveness, StatusServer
 
@@ -126,8 +129,9 @@ def run_loop(
     expected_platform: Optional[str] = "auto",
     started: Optional[Callable[[AgentLoop], None]] = None,
 ) -> AgentLoop:
-    """Run the agent's loop until ``stop`` is set, then shut it down; returns
-    what it built.
+    """Run the agent's loop until ``stop`` is set, or until the group agrees
+    to stop (another rank's ``stop``), then shut it down; returns what it
+    built.
 
     ``started`` is called with the built parts just before the first cycle.
     The shutdown order: the loop thread (after its cycle in flight), the
@@ -181,7 +185,7 @@ def run_loop(
         if started is not None:
             started(loop)
         agent.start()
-        while not stop.wait(0.5):
+        while not stop.wait(0.5) and not agent.stopped.is_set():
             pass
     finally:
         loop.joined = agent.stop()
@@ -190,6 +194,7 @@ def run_loop(
         dispatcher.stop()
         if dist.is_initialized():
             if loop.joined:
+                COLLECTIVE_GRAPHS.drop()
                 dist.destroy_process_group()
             else:
                 logger.warning("The probe loop did not stop within 5 s; leaving the process group to the exit")

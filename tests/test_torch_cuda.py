@@ -262,6 +262,107 @@ def test_graph_timing_ignores_busy_host_cores(cuda_device):
     assert busy > 0.9 * quiet, (quiet, busy)
 
 
+def test_a_collectives_graph_is_timed_without_its_barrier(cuda_device):
+    """A collective of several ranks is timed on the device as a kept graph
+    (probe/timing.py:collective_times_ms): the barrier graph launched ahead
+    of each timed launch (here a kernel that sleeps) waits outside the
+    window, and each launch's output is read back."""
+    from k8s_watcher_tpu_torch.probe.timing import capture_graph, collective_times_ms
+
+    x = torch.ones(1024, device=cuda_device)
+    graph, out = capture_graph(lambda: x * 2 + 1, cuda_device)
+    barrier, _ = capture_graph(lambda: torch.cuda._sleep(20_000_000), cuda_device)
+    timed = collective_times_ms(graph, out, barrier, 3, cuda_device)
+    assert [value for _, value in timed] == [3.0] * 3
+    assert max(ms for ms, _ in timed) < 2.0, timed
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    barrier.replay()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    assert start.elapsed_time(end) >= 5.0  # the barrier, timed with the call
+
+
+FOUR_RANKS = r"""
+import json, os, sys
+import torch
+from k8s_watcher_tpu_torch.config import TpuConfig
+from k8s_watcher_tpu_torch.faults.ici import IciFaultSpec
+from k8s_watcher_tpu_torch.probe.ici import run_ici_probe
+from k8s_watcher_tpu_torch.probe.links import run_link_probe
+from k8s_watcher_tpu_torch.probe.timing import COLLECTIVE_GRAPHS
+import torch.distributed as dist
+
+rank = int(os.environ["RANK"])
+device = torch.device("cuda", rank)
+torch.cuda.set_device(device)
+floor = TpuConfig().probe_link_rtt_floor_ms
+out = {}
+for case, fault in (("quiet", None), ("slow", IciFaultSpec(slow_rank=2)), ("corrupt", IciFaultSpec(corrupt_rank=2))):
+    for _ in range(3):  # the first cycle of a fault captures its graphs
+        walk = run_link_probe(device=device, fault=fault, rtt_floor_ms=floor)
+        ici = run_ici_probe(device=device, fault=fault, payload_bytes=4 << 20)
+    out[case] = {"hops": {link.name: link.rtt_ms for link in walk.links}, "error": walk.error,
+                 "suspect_devices": walk.suspect_devices, "suspects": [s["name"] for s in walk.suspect_links],
+                 "chain_round_ms": ici.psum_rtt_median_ms, "bus_gbps": ici.bandwidth_gbps_median,
+                 "ici_ok": ici.ok}
+print("RESULT " + json.dumps(out), flush=True)
+COLLECTIVE_GRAPHS.drop()  # no graph outlives the group's communicators
+dist.destroy_process_group()
+"""
+
+
+def test_four_cards_time_the_walk_on_the_device_and_name_a_bad_gpu():
+    """Four NCCL ranks, one a card, walk the ring of 4 as the DaemonSet's
+    agents do, each link's exchanges a kept graph timed on the device: on a
+    quiet node no link is a suspect and every hop reads under the floor
+    (``link_rtt_floor_ms``); a slow rank's two links read over the floor and
+    three times the quiet links' hops; a corrupt rank is named. (On a ring of
+    4 a slow rank taints half the links, so the median rule cannot name it;
+    the ring of 8 the DaemonSet runs can.)"""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four NVIDIA GPUs: the group is four ranks, one a card")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    for rank in range(4):
+        env = {**os.environ, "RANK": str(rank), "WORLD_SIZE": "4", "LOCAL_RANK": str(rank),
+               "LOCAL_WORLD_SIZE": "4", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+               "PYTHONPATH": os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)}
+        procs.append(subprocess.Popen([sys.executable, "-c", FOUR_RANKS], cwd=root, env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    results = {}
+    for rank, proc in enumerate(procs):
+        text, _ = proc.communicate(timeout=300)
+        assert proc.returncode == 0, text[-3000:]
+        results[rank] = json.loads(next(l for l in text.splitlines() if l.startswith("RESULT "))[7:])
+    print(json.dumps(results))
+    floor = TpuConfig().probe_link_rtt_floor_ms
+    hops = {case: {name: ms for r in results.values() for name, ms in r[case]["hops"].items()}
+            for case in ("quiet", "slow", "corrupt")}
+    for case in hops:
+        assert len(hops[case]) == 4, hops  # the ring's 4 links, each on its owner
+    quiet = results[0]["quiet"]
+    assert quiet["error"] is None and quiet["suspect_devices"] == [] and quiet["suspects"] == []
+    assert quiet["ici_ok"] and quiet["chain_round_ms"] > 0.0 and quiet["bus_gbps"] > 0.0
+    assert all(0.0 < ms < floor for ms in hops["quiet"].values()), hops
+    slow = hops["slow"]
+    tainted = {name: ms for name, ms in slow.items() if "chip2" in name}
+    healthy = {name: ms for name, ms in slow.items() if "chip2" not in name}
+    assert len(tainted) == 2 and min(tainted.values()) > max(floor, 3.0 * max(healthy.values())), slow
+    corrupt = results[0]["corrupt"]
+    assert corrupt["suspect_devices"] == [2] and sorted(corrupt["suspects"]) == sorted(tainted), corrupt
+
+
 def test_a_cycle_on_card_counts_its_capture_and_device_allocations(cuda_device, monkeypatch):
     """On the card the GEMM stage captures its graph inside its set-up in the
     first cycle of its key, and replays it after: later cycles count no
