@@ -11,12 +11,13 @@ runs far below spec. Two probes, as in the JAX package's ``probe/hbm.py``:
   writing a block-indexed pattern (write bandwidth), then per-block sums of
   the written buffer; a mismatch names the bad block's byte range.
 
-Each timed measurement is one kernel launch of ``repeats`` full passes,
-fenced once by a one-element readback with the median fence cost subtracted.
-On the card there is no cap on the buffer and ``interpreted`` is False. On
-the CPU the kernels' plain versions run, the buffer is capped at two blocks
-as the JAX package caps its interpret mode, and the bandwidth numbers are
-meaningless (``interpreted`` is True).
+Each timed measurement is one kernel launch of ``repeats`` full passes. On
+the card the kernel times itself, there is no cap on the buffer and
+``interpreted`` is False. On the CPU it is fenced once by a one-element
+readback with the median fence cost subtracted, the kernels' plain versions
+run, the buffer is capped at two blocks as the JAX package caps its
+interpret mode, and the bandwidth numbers are meaningless (``interpreted``
+is True).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from k8s_watcher_tpu_torch.kernels.hbm import (
     WRITE_BLOCK_ELEMS,
     WRITE_BYTES_PER_BLOCK,
 )
-from k8s_watcher_tpu_torch.probe import spans
+from k8s_watcher_tpu_torch.probe import spans, timing
 from k8s_watcher_tpu_torch.probe.device import device_id, resolve_device
 from k8s_watcher_tpu_torch.probe.timing import fence_baseline_ms, fetch_scalar, read_scalar
 
@@ -57,18 +58,16 @@ def _timed_pass_ms(run, device, iters: int, baseline_ms: float, repeats: int,
     """(per_pass_ms, per_pass_min_ms, unreliable): median (and min) time of
     ``iters`` fenced executions of ``run(timer)``, per pass. On a card the
     kernel times itself (``timer``: the device time between CUDA events its
-    C entry point records around its launches; no fence inside). On the CPU
-    the host clock spans run and fence, minus the fence baseline, and the
-    reading is flagged unreliable when the device share is under a quarter
-    of the baseline. The loop stops once ``budget_ms`` of wall time is spent
-    (a badly degraded part)."""
-    on_card = device.type == "cuda"
-    if on_card:
-        baseline_ms = 0.0
+    C entry point records around its launches; no fence inside, and
+    ``baseline_ms`` is 0). On the CPU the host clock spans run and fence,
+    minus the fence baseline, and the reading is flagged unreliable when the
+    device share is under a quarter of the baseline. The loop stops once
+    ``budget_ms`` of wall time is spent (a badly degraded part)."""
+    on_device = timing.timed_on_device(device)
     per_exec = []
     loop_t0 = time.perf_counter()
     for _ in range(iters):
-        if on_card:
+        if on_device:
             timer = ctypes.c_float()
             read_scalar(run(timer))
             per_exec.append(timer.value)
@@ -119,7 +118,7 @@ def run_hbm_probe(
             expected = float(rows * WIDTH)
             integrity_ok = abs(got - expected) <= 1e-6 * expected
 
-            baseline_ms = fence_baseline_ms(device)
+            baseline_ms = 0.0 if timing.timed_on_device(device) else fence_baseline_ms(device)
         with spans.span("probe.hbm_read.timed"):
             pass_ms, pass_min_ms, unreliable = _timed_pass_ms(
                 lambda timer: kernels.read_sweep(x, repeats, timer=timer), device, iters, baseline_ms, repeats
@@ -170,7 +169,7 @@ def run_hbm_write_probe(
             fetch_scalar(y)
             compile_ms = 1e3 * (time.perf_counter() - t0)
 
-            baseline_ms = fence_baseline_ms(device)
+            baseline_ms = 0.0 if timing.timed_on_device(device) else fence_baseline_ms(device)
             # seeds made and fenced before the timed window, a fresh one per run
             seed_tensors = [carry.seed(float(k + 1), device) for k in range(iters)]
             for s in seed_tensors:

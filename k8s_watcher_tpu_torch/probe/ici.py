@@ -4,10 +4,10 @@ Measurement discipline (see probe/timing.py): the first call is the warmup,
 each timed call chains ``inner_iters`` dependent operations, and each is
 fenced by a one-element readback with the median fence cost subtracted. The
 minimum is reported as the RTT (least-noise estimate), beside mean, max and
-the median headline. A group of several ranks on CUDA keeps each timed call
-of the chain and of the bandwidth all-reduce as a CUDA graph and times it on
-the device instead, behind a gate after a barrier
-(``probe/timing.py:CollectiveGraphs``).
+the median headline. On CUDA each timed call of the chain, of the bandwidth
+all-reduce and of the GEMM chain is a kept CUDA graph, timed on the device
+instead (``probe/timing.py:GRAPHS``); the collectives behind a gate after a
+barrier.
 
 On Hopper the collectives are NCCL's and the GEMM is cuBLAS's through
 ``torch.matmul``, as the JAX package left both to XLA rather than Pallas.
@@ -18,9 +18,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
-import threading
 import time
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -35,18 +34,14 @@ from k8s_watcher_tpu_torch.parallel.collectives import (
     psum_probe_input,
 )
 from k8s_watcher_tpu_torch.parallel.mesh import Mesh, host_chip_mesh
-from k8s_watcher_tpu_torch.probe import spans
+from k8s_watcher_tpu_torch.probe import spans, timing
 from k8s_watcher_tpu_torch.probe.device import device_id, resolve_device
 from k8s_watcher_tpu_torch.probe.timing import (
     TimedStats,
-    capture_graph,
     fence_baseline_ms,
     fetch_scalar,
-    COLLECTIVE_GRAPHS,
-    KeptCollective,
     graph_times_ms,
     timed_fenced,
-    times_on_device,
 )
 
 logger = logging.getLogger(__name__)
@@ -74,16 +69,14 @@ class IciProbeResult:
         return dataclasses.asdict(self)
 
 
-def _kept(key: tuple, fn, x, mesh: Mesh) -> KeptCollective:
+def _kept_stats(mesh: Mesh, key: tuple, fn, x, iters: int, timed: Optional[str] = None) -> tuple:
     """``fn(x)`` as this rank's kept graph for ``key``, its barrier one
-    all-reduce over the mesh's group."""
-    return COLLECTIVE_GRAPHS.get((device_id(mesh.device),) + key, fn, x, make_barrier(mesh.group, mesh.device),
-                                 lambda ok: all_agree(ok, mesh.device, mesh.group))
-
-
-def _device_timed(kept: KeptCollective, iters: int) -> TimedStats:
-    """Seconds of ``iters`` launches of a kept graph, timed on the device."""
-    return TimedStats.of([ms / 1e3 for ms, _ in kept.times_ms(iters)])
+    all-reduce over the mesh's group (probe/timing.py:kept_collective_ms):
+    ``(warm, warm_s, seconds of its iters launches timed on the device)``."""
+    warm, warm_s, samples = timing.kept_collective_ms(
+        key, fn, x, make_barrier(mesh.group, mesh.device), lambda ok: all_agree(ok, mesh.device, mesh.group),
+        iters, "probe.ici", timed)
+    return warm, warm_s, TimedStats.of([ms / 1e3 for ms, _ in samples])
 
 
 @spans.traced("probe.ici")
@@ -107,27 +100,22 @@ def run_ici_probe(
                 mesh = host_chip_mesh(resolve_device(device))
             n = mesh.size
             n_hosts = mesh.ranks.shape[0]
+            on_device = timing.timed_on_device(mesh.device)
 
             t0 = time.perf_counter()
             psum = make_psum_probe(mesh, inner_iters, fault)
             x = psum_probe_input(mesh)
-            graphed = times_on_device(mesh.device, n)
-            if graphed:
-                chain = _kept(("psum", inner_iters, fault), psum, x, mesh)
-                result = chain.replay()
-            else:
-                result = psum(x)
-            fetch_scalar(result)  # warmup (fenced)
-            compile_ms = 1e3 * (time.perf_counter() - t0)
-
-            expected = (n + 1) / 2.0  # fixed point of chained all_reduce(x)/n
-            with spans.sync():
-                psum_correct = bool(np.allclose(result.cpu().numpy()[0], expected))
-
-            # a graph is timed on the device: no fence to subtract
-            baseline_ms = 0.0 if graphed else fence_baseline_ms(mesh.device)
-        with spans.span("probe.ici.timed"):
-            rtt_stats = _device_timed(chain, iters) if graphed else timed_fenced(psum, x, iters, baseline_ms)
+            if not on_device:
+                warm = fetch_scalar(psum(x))  # warmup (fenced)
+                baseline_ms = fence_baseline_ms(mesh.device)
+            compile_s = time.perf_counter() - t0
+        if on_device:  # a kept graph, timed on the device: no fence to subtract
+            warm, warm_s, rtt_stats = _kept_stats(mesh, ("psum", inner_iters, fault), psum, x, iters)
+            compile_s += warm_s
+        else:
+            with spans.span("probe.ici.timed"):
+                rtt_stats = timed_fenced(psum, x, iters, baseline_ms)
+        psum_correct = bool(np.isclose(warm, (n + 1) / 2.0))  # fixed point of chained all_reduce(x)/n
         rtt_min, rtt_mean, rtt_max = (t / inner_iters for t in rtt_stats)
         unreliable = rtt_stats.unreliable
 
@@ -137,16 +125,14 @@ def run_ici_probe(
             with spans.span("probe.ici.setup"):
                 bw_fn = make_allreduce_bandwidth_probe(mesh, payload_bytes, fault)
                 payload = bandwidth_probe_input(mesh, payload_bytes)
-                if graphed:
-                    bandwidth = _kept(("bandwidth", payload_bytes, fault), bw_fn, payload, mesh)
-                    fetch_scalar(bandwidth.replay())  # warmup
-                else:
+                if not on_device:
                     fetch_scalar(bw_fn(payload))  # warmup
             bw_iters = max(3, iters // 3)
-            with spans.span("probe.ici.timed"), spans.span("probe.ici.bandwidth"):
-                if graphed:
-                    bw_stats = _device_timed(bandwidth, bw_iters)
-                else:
+            if on_device:
+                _, _, bw_stats = _kept_stats(mesh, ("bandwidth", payload_bytes, fault), bw_fn, payload, bw_iters,
+                                             "probe.ici.bandwidth")
+            else:
+                with spans.span("probe.ici.timed"), spans.span("probe.ici.bandwidth"):
                     bw_stats = timed_fenced(bw_fn, payload, bw_iters, baseline_ms)
             bw_gbps = allreduce_bus_bandwidth_gbps(payload_bytes, n, bw_stats[0])
             bw_gbps_median = allreduce_bus_bandwidth_gbps(payload_bytes, n, bw_stats.median)
@@ -164,7 +150,7 @@ def run_ici_probe(
             bandwidth_gbps=bw_gbps,
             bandwidth_gbps_median=bw_gbps_median,
             payload_bytes=payload_bytes,
-            compile_ms=compile_ms,
+            compile_ms=1e3 * compile_s,
             timing_unreliable=unreliable,
         )
     except Exception as exc:  # noqa: BLE001 — a failed probe is an unhealthy reading
@@ -205,65 +191,6 @@ def mxu_operands(size: int, device, out=None) -> tuple:
     return out
 
 
-class KeptGraph:
-    """The GEMM chain's operands, and the CUDA graph that reads them with its
-    output, for one key ``(device index, size, inner_iters)``."""
-
-    __slots__ = ("key", "operands", "graph", "out")
-
-    def __init__(self, key: tuple):
-        self.key = key
-        self.operands: Optional[tuple] = None
-        self.graph = None
-        self.out: Optional[torch.Tensor] = None
-
-    def draw(self, size: int, device) -> tuple:
-        """The operands, drawn anew into the kept tensors: a flipped bit in
-        one does not outlast the cycle."""
-        self.operands = mxu_operands(size, device, out=self.operands)
-        return self.operands
-
-    def capture(self, fn, device) -> tuple:
-        """``(graph, output)`` of ``fn``, captured where none is kept."""
-        if self.graph is None:
-            with spans.span("probe.mxu.capture"):
-                self.graph, self.out = capture_graph(fn, device)
-        return self.graph, self.out
-
-
-class GemmGraphs:
-    """The GEMM chain's CUDA graph, kept from one cycle to the next.
-
-    Every cycle of a process runs the same chain, on the same device and
-    operands, so its graph is captured once and replayed after. Capturing
-    anew each cycle cost more than the capture: ``torch.cuda.graph``
-    synchronizes and empties the caching allocator on entry, which handed
-    the HBM stages' cached buffers back to the driver every cycle, to be
-    allocated again. One key is kept at a time; another key, or a stage that
-    raised inside :meth:`hold`, drops what was kept."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._kept: Optional[KeptGraph] = None
-
-    @contextlib.contextmanager
-    def hold(self, key: tuple) -> Iterator[KeptGraph]:
-        """What is kept for ``key`` (new and empty where it was not), for
-        this caller alone until the block ends: no two threads replay or
-        capture one graph at once."""
-        with self._lock:
-            if self._kept is None or self._kept.key != key:
-                self._kept = KeptGraph(key)
-            try:
-                yield self._kept
-            except BaseException:
-                self._kept = None
-                raise
-
-
-GRAPHS = GemmGraphs()  # the process's: each rank probes one device with one key
-
-
 @spans.traced("probe.mxu")
 def run_mxu_probe(
     size: int = 4096,
@@ -280,19 +207,21 @@ def run_mxu_probe(
 
     On a CUDA device the chain is timed as a CUDA graph (see
     probe/timing.py), captured in the first cycle of a key and replayed in
-    every later one (:class:`GemmGraphs`). Each cycle redraws the operands
-    into the kept tensors and runs the chain eagerly once, fenced and checked,
-    before the graph's timed launches; a graph whose output is not finite is
-    dropped and captured again next cycle."""
+    every later one (``probe/timing.py:GRAPHS``). Each cycle redraws the
+    operands into the kept tensors (a flipped bit in one does not outlast the
+    cycle) and runs the chain eagerly once, fenced and checked, before the
+    graph's timed launches; a graph whose output is not finite is dropped
+    and captured again next cycle."""
     try:
         with contextlib.ExitStack() as held:
             with spans.span("probe.mxu.setup"):
                 device = resolve_device(device)
-                on_card = device.type == "cuda"
+                on_device = timing.timed_on_device(device)
                 inv_scale = 1.0 / (size**0.5)
-                if on_card:
-                    kept = held.enter_context(GRAPHS.hold((device_id(device), size, inner_iters)))
-                    a, b = kept.draw(size, device)
+                if on_device:
+                    kept = held.enter_context(timing.GRAPHS.hold((device_id(device), "gemm", size, inner_iters)))
+                    kept.inputs = mxu_operands(size, device, out=kept.inputs or None)
+                    a, b = kept.inputs
                 else:
                     a, b = mxu_operands(size, device)
 
@@ -303,21 +232,21 @@ def run_mxu_probe(
                 fetch_scalar(out)  # warmup (fenced)
                 with spans.sync():
                     finite = bool(torch.isfinite(out.float()).all())
-                if on_card:
-                    # one graph launch per timed run: see probe/timing.py
-                    graph, graph_out = kept.capture(lambda: step((a, b)), device)
-                else:
+                if not on_device:
                     baseline_ms = fence_baseline_ms(device)
+                elif kept.graph is None:  # one graph launch per timed run: see probe/timing.py
+                    with spans.span("probe.mxu.capture"):
+                        kept.capture(lambda: step((a, b)), device)
             with spans.span("probe.mxu.timed"):
-                if on_card:
-                    stats = TimedStats.of([ms / 1e3 for ms in graph_times_ms(graph, device, iters)])
+                if on_device:
+                    stats = TimedStats.of([ms / 1e3 for ms in graph_times_ms(kept.graph, device, iters)])
                 else:
                     stats = timed_fenced(step, (a, b), iters, baseline_ms)
-            if on_card:
+            if on_device:
                 with spans.sync():
-                    finite = finite and bool(torch.isfinite(graph_out.float()).all())
+                    finite = finite and bool(torch.isfinite(kept.out.float()).all())
                 if not finite:
-                    kept.graph = kept.out = None
+                    kept.empty()
         tmin = stats[0]
         flops = 2.0 * size**3 * inner_iters
         return {

@@ -4,51 +4,43 @@ Each timed call chains its real work inside one launch (inner iterations,
 multi-pass kernels) and is fenced by reading one element back to the host
 (``.item()`` of one element: PyTorch launches are asynchronous).
 
-:func:`timed_fenced` spans launch and fence with the host clock and
-subtracts the separately measured median cost of the fence, as the reference
-does. The readings the trend tracker holds (GEMM TFLOP/s, HBM GB/s) are the
-device's own on a CUDA device instead. In the watcher the probe shares its
-Python process with the ingest threads, and every release of the interpreter
-lock (each PyTorch call, each fence) can cost the probe thread a wait of a
+Where a launch is timed is decided by its device alone
+(:func:`timed_on_device`). On the CPU, :func:`timed_fenced` spans launch and
+fence with the host clock and subtracts the separately measured median cost
+of the fence, as the reference does; the CPU tests hold the port to the JAX
+package through these host-fenced twins. On a CUDA device every reading is
+the device's own, at any rank count. There the probe shares its Python
+process with the watcher's ingest threads, and every release of the
+interpreter lock (each PyTorch call, each fence) can cost the probe thread a
 switch interval (5 ms) or more before it runs again: a sub-millisecond GEMM
-chain timed on the host clock read tens of times slower than it ran, and
-tripped a trend alert. So the GEMM chain is captured into a CUDA graph and
-launched by one C call that records CUDA events around it
-(:func:`graph_times_ms`), as the HBM kernels time themselves
-(``kernels/hbm.py``).
+chain timed on the host clock read tens of times slower than it ran and
+tripped a trend alert, and a round of the latency chain on four H100s read
+0.12-0.57 ms where NVLink takes microseconds (each reading was the slowest
+rank's submission of the call). So each timed call is a CUDA graph, launched
+by one C call that records CUDA events around it (``k8w_time_graph``), as
+the HBM kernels time themselves (``kernels/hbm.py``): the GEMM chain through
+:func:`graph_times_ms`; a collective (a latency chain's rounds, the payload
+all-reduce, a link's exchanges) through :func:`collective_times_ms`, behind
+the gate after a barrier graph (one tiny collective over the same members),
+so the window starts once every member has arrived.
 
-The graph is captured once per key (device, size, inner iterations) and
-replayed in every later cycle (``probe/ici.py:GemmGraphs``). A capture each
-cycle cost the cycle more than its own time: ``torch.cuda.graph`` synchronizes
-the device and empties the caching allocator on entry, so every cycle handed
-the HBM stages' cached buffers back to the driver and allocated them again.
-
-The collectives of a group of several ranks on CUDA are timed on the device
-too, as CUDA graphs kept across cycles (:class:`CollectiveGraphs`). Timed on
-the host, a round of the latency chain on four H100s of one node read
-0.12-0.57 ms where NVLink takes microseconds: each call's reading is the
-slowest rank's submission of it, and its host's stalls, so a quiet node's
-readings drifted past the trend tracker's factors in about half its cycles.
-Submitted call by call, even when timed on the device, the cycle's ~250
-collective calls a rank took 50-140 ms of host time, which rose and fell with
-the host's speed from run to run. A kept graph holds a timed call's whole
-chain (a latency chain's rounds, a link's exchanges); :func:`collective_times_ms`
-launches it behind the gate after a barrier graph (one tiny collective over
-the same members), so the window starts once every member has arrived and
-times the call as the fabric runs it, for one C call of host work. A group
-of one rank measures no fabric and keeps the host's clock (its readings fold
-into no trend).
+The graphs live in one store for the process (:data:`GRAPHS`), captured in
+the first cycle of their key and replayed in every later one. A capture each
+cycle cost the cycle more than its own time: ``torch.cuda.graph``
+synchronizes the device and empties the caching allocator on entry, which
+freed the HBM stages' cached buffers every cycle, to be allocated again.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import logging
 import statistics
 import threading
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -90,14 +82,15 @@ def fence_baseline_ms(device: Optional[torch.device] = None, samples: int = 3) -
 def capture_graph(fn, device: torch.device):
     """``fn()`` captured into a CUDA graph: ``(graph, output)``, to be kept and
     replayed: each call synchronizes the device and empties the caching
-    allocator (``torch.cuda.graph``'s entry). One run on a side stream
-    first, as capture requires (the GEMM library makes its handles and
-    workspace outside the capture). The capture is thread-local:
-    other threads of the process (the watcher's analytics requests) keep
-    allocating, copying and synchronizing their own streams meanwhile, which
-    a global capture forbids and which would invalidate it."""
+    allocator (``torch.cuda.graph``'s entry). One run first, as capture
+    requires (the GEMM library makes its handles and workspace outside the
+    capture), on the device's side stream (:meth:`GraphStore.side_stream`):
+    the library keeps a workspace for every stream it runs on. The capture
+    is thread-local: other threads of the process (the watcher's analytics
+    requests) keep allocating, copying and synchronizing their own streams
+    meanwhile, which a global capture forbids and which would invalidate it."""
+    side = GRAPHS.side_stream(device)
     with torch.cuda.device(device):
-        side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             fn()
@@ -126,11 +119,11 @@ def graph_times_ms(graph, device: torch.device, iters: int) -> list:
     return times
 
 
-def times_on_device(device: torch.device, n_ranks: int) -> bool:
-    """Whether the collectives of a group of ``n_ranks`` on ``device`` are
-    timed on the device, as kept CUDA graphs (:class:`CollectiveGraphs`),
-    rather than fenced on the host: a group of several CUDA ranks."""
-    return device.type == "cuda" and n_ranks > 1
+def timed_on_device(device: torch.device) -> bool:
+    """Whether the probe's launches on ``device`` are timed on the device, as
+    kept CUDA graphs and self-timed kernels, rather than fenced on the host:
+    on CUDA, at any rank count."""
+    return device.type == "cuda"
 
 
 def collective_times_ms(graph, out: torch.Tensor, barrier, iters: int, device: torch.device) -> list:
@@ -154,70 +147,66 @@ def collective_times_ms(graph, out: torch.Tensor, barrier, iters: int, device: t
     return samples
 
 
-@dataclasses.dataclass
-class KeptCollective:
-    """One timed call of a collective as a CUDA graph, with the barrier
-    graph launched ahead of each timed launch; ``x`` is the input the graph
-    reads, ``out`` what it writes."""
+@dataclasses.dataclass(eq=False)
+class KeptCall:
+    """A timed call kept as a CUDA graph: the tensors it reads (``inputs``,
+    refreshed in place every cycle), its ``graph`` and the ``out`` it
+    writes, and a collective's ``barrier`` graph, launched ahead of each
+    timed launch. Empty (``graph`` None) until captured."""
 
-    x: torch.Tensor
-    graph: object
-    out: torch.Tensor
-    barrier: object
+    inputs: tuple = ()
+    graph: object = None
+    out: Optional[torch.Tensor] = None
+    barrier: object = None
+    lock: threading.Lock = dataclasses.field(default_factory=threading.Lock, repr=False)
 
-    def replay(self) -> torch.Tensor:
-        """One untimed launch; ``out``."""
-        self.graph.replay()
-        return self.out
+    def capture(self, fn, device: torch.device, barrier: Optional[Callable[[], None]] = None) -> None:
+        """Capture ``fn``, and ``barrier`` as the barrier graph."""
+        self.graph, self.out = capture_graph(fn, device)
+        if barrier is not None:
+            self.barrier, _ = capture_graph(barrier, device)
 
-    def times_ms(self, iters: int) -> list:
-        """:func:`collective_times_ms` of ``iters`` launches."""
-        return collective_times_ms(self.graph, self.out, self.barrier, iters, self.x.device)
+    def empty(self) -> None:
+        """Let go of the graphs: the next holder captures anew."""
+        self.inputs, self.graph, self.out, self.barrier = (), None, None, None
 
 
-class CollectiveGraphs:
-    """The process's collective graphs, kept from one cycle to the next.
+class GraphStore:
+    """The process's kept CUDA graphs, one per key, from one cycle to the next.
 
-    A stage's timed call is the same every cycle (its members, sizes and
-    input), so it is captured once, in the first cycle of its key, and
-    replayed after; later cycles make no call into ``torch.distributed``
-    for it. Every member captures the same keys in the same order: a capture
-    runs the call once first (``capture_graph``), which connects its peers.
-    The members then agree that each has captured, so none replays a graph
-    that a peer lacks. Graphs hold the default group's communicators: a new
-    default group drops them all."""
+    A stage's timed call is the same every cycle (its device, sizes and, for
+    a collective, members), so it is captured in the first cycle of its key
+    and replayed after. Every member of a collective captures the same keys
+    in the same order (a capture runs the call once first, which connects
+    its peers), and the members then agree that each has captured, so none
+    replays a graph that a peer lacks. Collective graphs hold the default
+    group's communicators: a new default group drops them all."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._world = None
-        self._kept: Dict[tuple, KeptCollective] = {}
+        self._kept: Dict[tuple, KeptCall] = {}
+        self._streams: Dict[int, torch.cuda.Stream] = {}
 
-    def get(self, key: tuple, fn, x: torch.Tensor, barrier: Callable[[], None],
-            agree: Callable[[bool], bool]) -> KeptCollective:
-        """The kept call ``fn(x)`` for ``key``, captured where none is (with
-        ``barrier()`` as its barrier graph, then ``agree(captured)`` over
-        its members); a kept one reads ``x`` copied into its input."""
-        import torch.distributed as dist
-
+    @contextlib.contextmanager
+    def hold(self, key: tuple, world=None) -> Iterator[KeptCall]:
+        """What is kept for ``key`` (empty where nothing is), for this caller
+        alone until the block ends: no two threads capture or replay one key
+        at once. ``world``: a collective's default group. A block that raises
+        empties a graph no peer shares; a collective's stays, as its
+        members keep theirs."""
         with self._lock:
-            if self._world is not dist.group.WORLD:
-                self._world, self._kept = dist.group.WORLD, {}
-            kept = self._kept.get(key)
-        if kept is not None:
-            kept.x.copy_(x)
-            return kept
-        kept = None
-        try:
-            graph, out = capture_graph(lambda: fn(x), x.device)
-            barrier_graph, _ = capture_graph(barrier, x.device)
-            kept = KeptCollective(x, graph, out, barrier_graph)
-        except Exception as exc:  # noqa: BLE001 — agreed on below: every member raises alike
-            logger.warning("Capturing the collective %s failed: %s", key, exc)
-        if not agree(kept is not None):
-            raise RuntimeError(f"the collective {key} is not captured on every member")
-        with self._lock:
-            self._kept[key] = kept
-        return kept
+            if world is not None and world is not self._world:
+                self._world = world
+                self._kept = {k: v for k, v in self._kept.items() if v.barrier is None}
+            kept = self._kept.setdefault(key, KeptCall())
+        with kept.lock:
+            try:
+                yield kept
+            except BaseException:
+                if world is None:
+                    kept.empty()
+                raise
 
     def drop(self) -> None:
         """Let go of every kept graph: before the default group is destroyed,
@@ -225,8 +214,55 @@ class CollectiveGraphs:
         with self._lock:
             self._world, self._kept = None, {}
 
+    def side_stream(self, device: torch.device) -> torch.cuda.Stream:
+        """The stream every capture on ``device`` runs its first run on."""
+        with self._lock:
+            if device.index not in self._streams:
+                self._streams[device.index] = torch.cuda.Stream(device)
+            return self._streams[device.index]
 
-COLLECTIVE_GRAPHS = CollectiveGraphs()
+
+GRAPHS = GraphStore()
+
+
+def kept_collective_ms(key: tuple, fn, x: torch.Tensor, barrier: Callable[[], None],
+                       agree: Callable[[bool], bool], iters: int, stage: str,
+                       timed: Optional[str] = None) -> Tuple[float, float, list]:
+    """The collective call ``fn(x)`` as the process's kept graph for ``key``
+    on ``x``'s device, warmed and timed: ``(warm, warm_s, samples)``.
+
+    The first cycle of a key captures the call (``barrier()`` as its barrier
+    graph) and its members then ``agree(captured)``: a capture that failed
+    on any member is kept by none, and raises. Later cycles copy ``x`` into
+    the kept input. One untimed launch, fenced, reads ``warm`` (the first
+    element of the output), ``warm_s`` after the call began; then ``iters``
+    launches are timed by :func:`collective_times_ms`: ``samples``. The
+    capture and the warm launch are a ``<stage>.setup`` span, the timed
+    launches a ``<stage>.timed`` span, holding the span ``timed`` where
+    given."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    with GRAPHS.hold((x.device.index,) + key, dist.group.WORLD) as kept:
+        with spans.span(f"{stage}.setup"):
+            if kept.graph is None:
+                try:
+                    kept.capture(lambda: fn(x), x.device, barrier)
+                    kept.inputs = (x,)
+                except Exception as exc:  # noqa: BLE001 — agreed on below: every member raises alike
+                    logger.warning("Capturing the collective %s failed: %s", key, exc)
+                    kept.empty()
+                if not agree(kept.graph is not None):
+                    kept.empty()
+                    raise RuntimeError(f"the collective {key} is not captured on every member")
+            else:
+                kept.inputs[0].copy_(x)
+            kept.graph.replay()
+            warm = fetch_scalar(kept.out)
+            warm_s = time.perf_counter() - t0
+        with spans.span(f"{stage}.timed"), spans.span(timed) if timed else contextlib.nullcontext():
+            samples = collective_times_ms(kept.graph, kept.out, kept.barrier, iters, x.device)
+    return warm, warm_s, samples
 
 
 class TimedStats(tuple):

@@ -47,7 +47,7 @@ from k8s_watcher_tpu_torch.notify.dispatcher import Dispatcher, build_notifier
 from k8s_watcher_tpu_torch.parallel.mesh import initialize_process_group
 from k8s_watcher_tpu_torch.probe.agent import ProbeAgent
 from k8s_watcher_tpu_torch.probe.device import local_rank, process_count, resolve_device
-from k8s_watcher_tpu_torch.probe.timing import COLLECTIVE_GRAPHS
+from k8s_watcher_tpu_torch.probe import timing
 from k8s_watcher_tpu_torch.remediate import ProbeRemediationPolicy, build_actuator, build_policy
 from k8s_watcher_tpu_torch.status import Liveness, StatusServer
 
@@ -194,7 +194,7 @@ def run_loop(
         dispatcher.stop()
         if dist.is_initialized():
             if loop.joined:
-                COLLECTIVE_GRAPHS.drop()
+                timing.GRAPHS.drop()
                 dist.destroy_process_group()
             else:
                 logger.warning("The probe loop did not stop within 5 s; leaving the process group to the exit")

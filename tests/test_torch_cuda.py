@@ -291,7 +291,7 @@ from k8s_watcher_tpu_torch.config import TpuConfig
 from k8s_watcher_tpu_torch.faults.ici import IciFaultSpec
 from k8s_watcher_tpu_torch.probe.ici import run_ici_probe
 from k8s_watcher_tpu_torch.probe.links import run_link_probe
-from k8s_watcher_tpu_torch.probe.timing import COLLECTIVE_GRAPHS
+from k8s_watcher_tpu_torch.probe.timing import GRAPHS
 import torch.distributed as dist
 
 rank = int(os.environ["RANK"])
@@ -308,7 +308,7 @@ for case, fault in (("quiet", None), ("slow", IciFaultSpec(slow_rank=2)), ("corr
                  "chain_round_ms": ici.psum_rtt_median_ms, "bus_gbps": ici.bandwidth_gbps_median,
                  "ici_ok": ici.ok}
 print("RESULT " + json.dumps(out), flush=True)
-COLLECTIVE_GRAPHS.drop()  # no graph outlives the group's communicators
+GRAPHS.drop()  # no graph outlives the group's communicators
 dist.destroy_process_group()
 """
 
@@ -367,11 +367,12 @@ def test_a_cycle_on_card_counts_its_capture_and_device_allocations(cuda_device, 
     """On the card the GEMM stage captures its graph inside its set-up in the
     first cycle of its key, and replays it after: later cycles count no
     capture and no device allocation (a capture empties the caching
-    allocator). The kept graph's output stays the chain's, and no readback
-    span falls inside a timed launch."""
-    from k8s_watcher_tpu_torch.probe import ici, spans
+    allocator). The first cycle's captures are the GEMM chain's and the
+    latency chain's with its barrier. The kept graph's output stays the
+    chain's, and no readback span falls inside a timed launch."""
+    from k8s_watcher_tpu_torch.probe import spans, timing
 
-    monkeypatch.setattr(ici, "GRAPHS", ici.GemmGraphs())  # a first cycle, whatever ran before
+    monkeypatch.setattr(timing, "GRAPHS", timing.GraphStore())  # a first cycle, whatever ran before
     config = TpuConfig(probe_payload_bytes=1 << 20, probe_hbm_bytes=32 << 20)
     agent = ProbeAgent(config, environment="development", sink=lambda n: None, device=cuda_device)
     cycles, entries = [], []
@@ -381,8 +382,8 @@ def test_a_cycle_on_card_counts_its_capture_and_device_allocations(cuda_device, 
         entries.append(agent.recent_cycles(1)[0])
     (capture,) = cycles[0].named("probe.mxu.capture")
     assert capture.parent.name == "probe.mxu.setup"
-    assert [c.counters["graph_captures"] for c in cycles] == [1, 0, 0]
-    assert [e["graph_captures"] for e in entries] == [1, 0, 0]
+    assert [c.counters["graph_captures"] for c in cycles] == [3, 0, 0]
+    assert [e["graph_captures"] for e in entries] == [3, 0, 0]
     assert [len(c.named("probe.mxu.capture")) for c in cycles[1:]] == [0, 0]
     assert cycles[0].counters["device_allocs"] >= 0
     assert [c.counters["device_allocs"] for c in cycles[1:]] == [0, 0]
@@ -394,12 +395,49 @@ def test_a_cycle_on_card_counts_its_capture_and_device_allocations(cuda_device, 
             (timed,) = cycle.named(name)
             assert not any(s.parent is timed for s in cycle.named("probe.sync")), name
     size, inner = config.probe_matmul_size, config.probe_matmul_inner_iters
-    with ici.GRAPHS.hold((cuda_device.index, size, inner)) as kept:
+    with timing.GRAPHS.hold((cuda_device.index, "gemm", size, inner)) as kept:
         got = kept.out.double()
-        carry, b = (t.double() for t in kept.operands)
+        carry, b = (t.double() for t in kept.inputs)
     for _ in range(inner):
         carry = carry @ b / size**0.5
     gap = float(torch.linalg.norm(got - carry) / torch.linalg.norm(carry))
     assert bool(torch.isfinite(got).all()) and gap < 0.03, gap
     print("card cycles: counters", [c.counters for c in cycles], "gemm_chain_gap", gap,
           "stages_ms", [e["stages_ms"] for e in entries])
+
+
+def test_a_one_rank_cycle_on_card_keeps_its_chain_and_takes_no_fence_baseline(cuda_device, monkeypatch):
+    """At one rank the latency chain is a kept graph, as in a group of
+    several: captured in the first cycle beside the GEMM chain, each capture
+    run first on the one side stream the store holds for the device, and
+    replayed after, so later cycles count no capture and no collective call.
+    The HBM stages take no fence baseline on the card: their payloads read
+    the 0.0 they subtract, and their set-ups hold no baseline readback."""
+    from k8s_watcher_tpu_torch.probe import hbm, spans, timing
+
+    store = timing.GraphStore()
+    monkeypatch.setattr(timing, "GRAPHS", store)
+    streams, baselines = [], []
+    side_stream = store.side_stream
+    monkeypatch.setattr(store, "side_stream", lambda device: streams.append(side_stream(device)) or streams[-1])
+    monkeypatch.setattr(hbm, "fence_baseline_ms", lambda *args, **kwargs: baselines.append(args) or 0.0)
+    config = TpuConfig(probe_payload_bytes=1 << 20, probe_hbm_bytes=32 << 20)
+    agent = ProbeAgent(config, environment="development", sink=lambda n: None, device=cuda_device)
+    reports, cycles = [], []
+    for _ in range(3):
+        reports.append(agent.run_once())
+        cycles.append(spans.RECORDER.last())
+    assert all(r.healthy for r in reports), [r.to_payload() for r in reports]
+    assert reports[0].ici.n_devices == 1 and all(r.ici.psum_rtt_median_ms > 0.0 for r in reports)
+    assert [c.counters["graph_captures"] for c in cycles] == [3, 0, 0]  # the GEMM chain; the chain and its barrier
+    assert [c.counters["collectives"] for c in cycles] == [2 * 10 + 2 + 1, 0, 0]
+    assert len(streams) == 3 and all(s is streams[0] for s in streams)
+    assert baselines == []
+    for report, cycle in zip(reports, cycles):
+        assert report.hbm["fence_baseline_ms"] == report.hbm_write["fence_baseline_ms"] == 0.0
+        in_setup = [s.parent.name for s in cycle.named("probe.sync")]
+        # the integrity read; the first fill's fence and the four seeds' (each stage's
+        # fence baseline took one more readback here)
+        assert (in_setup.count("probe.hbm_read.setup"), in_setup.count("probe.hbm_write.setup")) == (1, 5)
+    print("one-rank card cycles: chain round ms", [r.ici.psum_rtt_median_ms for r in reports],
+          "counters", [c.counters for c in cycles])

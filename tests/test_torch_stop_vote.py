@@ -73,12 +73,16 @@ def collective_values(rank: int, world: int) -> dict:
             "pairs": pairs, "gather": [mine.decode(), [r.decode() for r in rows]]}
 
 
-def stand_in_for_graphs() -> None:
-    """The card's path on the CPU: the group's timed collectives kept as
-    graphs (probe/timing.py:CollectiveGraphs), a capture standing in as two
-    runs of the call (the run ahead of the capture, and the capture), a
-    launch as nothing and a timed launch as a 0.01 ms reading of the output."""
-    from k8s_watcher_tpu_torch.probe import ici, links, timing
+def stand_in_for_graphs(patch=setattr) -> None:
+    """The card's path on the CPU, set with ``patch(owner, name, value)``:
+    every stage timed as on the device (probe/timing.py:timed_on_device),
+    its timed calls kept as graphs (probe/timing.py:GRAPHS), a capture
+    standing in as two runs of the call (the run ahead of the capture, and
+    the capture), a launch as nothing, a timed launch as a 0.01 ms reading
+    (of the output, for a collective), and the HBM kernels' own timers as
+    0.01 ms."""
+    from k8s_watcher_tpu_torch.kernels import hbm as kernels
+    from k8s_watcher_tpu_torch.probe import ici, spans, timing
 
     class Graph:
         def replay(self):
@@ -86,11 +90,23 @@ def stand_in_for_graphs() -> None:
 
     def capture(fn, device):
         fn()
+        spans.count("graph_captures")
         return Graph(), fn()
 
-    ici.times_on_device = links.times_on_device = lambda device, n: n > 1
-    timing.capture_graph = capture
-    timing.collective_times_ms = lambda graph, out, barrier, iters, device: [(0.01, timing.read_scalar(out))] * iters
+    def self_timed(kernel):
+        def run(*args, timer=None, **kwargs):
+            if timer is not None:
+                timer.value = 0.01
+            return kernel(*args, **kwargs)
+        return run
+
+    patch(timing, "timed_on_device", lambda device: True)
+    patch(timing, "capture_graph", capture)
+    patch(timing, "collective_times_ms",
+          lambda graph, out, barrier, iters, device: [(0.01, timing.read_scalar(out))] * iters)
+    patch(ici, "graph_times_ms", lambda graph, device, iters: [0.01] * iters)
+    patch(kernels, "read_sweep", self_timed(kernels.read_sweep))
+    patch(kernels, "fill", self_timed(kernels.fill))
 
 
 def rank_loop(rank: int, world: int, *, sink_url: str, graphs: bool = False) -> dict:
@@ -260,3 +276,54 @@ def test_at_one_rank_the_loop_makes_no_stop_vote_and_no_collective_for_it(monkey
         assert not c.named("probe.stop_vote") and not c.named("probe.gather")
         assert c.counters["collectives"] == chain["all_reduce"]
     assert calls == ["all_reduce"] * chain["all_reduce"] * len(cycles)
+
+
+def test_at_one_rank_the_cards_path_keeps_the_chain_and_later_cycles_make_no_collective(monkeypatch):
+    """On the card a group of one rank times its latency chain as a group of
+    several does: a kept graph behind its barrier, captured in the first
+    cycle (the call twice, the barrier twice and one agreement) and replayed
+    after, so no later cycle calls into ``torch.distributed`` (timed on the
+    host, the chain made 110 calls a cycle)."""
+    import torch.distributed as dist
+
+    from k8s_watcher_tpu_torch.probe import timing
+    from portbench.reference.ranks import CHAIN_INNER
+
+    stand_in_for_graphs(monkeypatch.setattr)
+    monkeypatch.setattr(timing, "GRAPHS", timing.GraphStore())
+    chains, calls = [], []
+    timed = timing.collective_times_ms
+    monkeypatch.setattr(timing, "collective_times_ms",
+                        lambda graph, *rest: chains.append(graph) or timed(graph, *rest))
+
+    def counted(name, real):
+        def call(*args, **kwargs):
+            calls.append(name)
+            return real(*args, **kwargs)
+        return call
+
+    for name in ("all_reduce", "all_gather_into_tensor", "batch_isend_irecv"):
+        monkeypatch.setattr(dist, name, counted(name, getattr(dist, name)))
+    done, seen = threading.Event(), []
+    probe = ProbeAgent(TpuConfig(**dict(PROBE, probe_interval_seconds=0.01)), environment="test",
+                       sink=lambda n: None, expected_platform="cpu", device="cpu")
+    probe.report_observer = lambda report: (seen.append(report), len(seen) >= 3 and done.set())
+    t0 = time.monotonic()
+    probe.start()
+    thread = probe._thread
+    try:
+        assert done.wait(60)
+    finally:
+        assert probe.stop()
+        if dist.is_initialized():  # the first cycle started a group of one; end it as run_loop would
+            timing.GRAPHS.drop()
+            dist.destroy_process_group()
+    cycles = [c for c in spans.cycles_between(t0, time.monotonic()) if c.span.thread == thread.native_id]
+    assert len(cycles) >= 3 and all(report.healthy for report in seen)
+    first, *later = cycles
+    capture = 2 * CHAIN_INNER + 2 + 1
+    assert first.counters["collectives"] == capture == 23
+    assert first.counters["graph_captures"] == 3  # the GEMM chain; the latency chain and its barrier
+    assert [(c.counters["collectives"], c.counters["graph_captures"]) for c in later] == [(0, 0)] * len(later)
+    assert calls == ["all_reduce"] * capture
+    assert len(chains) == len(cycles) and all(graph is chains[0] for graph in chains)  # one chain, kept
