@@ -10,7 +10,7 @@ JAX package's layout: row-major, float32 (bfloat16 for the MXU operands).
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -43,6 +43,16 @@ def rank_share(array: np.ndarray, rank: int, device) -> torch.Tensor:
 def seed(value: float, device) -> torch.Tensor:
     """The write probe's seed: a (1, 1) float32 tensor read by the kernel."""
     return to_port(np.full((1, 1), value, dtype=np.float32), device)
+
+
+def seeds(values, device) -> List[torch.Tensor]:
+    """Write-probe seeds from one host-to-device copy: one-element views of
+    one tensor, each at the start of its own 16-byte row (the kernels move
+    16-byte vectors, and check every CUDA input's alignment)."""
+    rows = np.zeros((len(values), 4), dtype=np.float32)
+    rows[:, 0] = values
+    t = to_port(rows, device)
+    return [t[k, :1] for k in range(len(values))]
 
 
 def additive_hook(delta: np.ndarray) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -30,16 +30,20 @@
 // Every entry point returns cudaGetLastError() after its launches; the
 // Python wrapper raises on a non-zero code.
 //
-// Timing: the read sweep and the fill take an optional `elapsed_ms`, and
-// k8w_time_graph launches a captured CUDA graph (the probe's GEMM chain) the
-// same way. With it, the call records a CUDA event before its launches and
-// one after them on the same stream, waits for the second, and returns the
-// device time between them. Launches and events leave in one C call, so no
-// host delay can fall between them: the probe shares its Python process with
-// the watcher's ingest threads, and a window opened from Python also timed
-// the probe thread's waits for the interpreter lock. The graph's window also
-// opens behind a gate (see k8w_time_graph), since a sub-millisecond graph
-// would otherwise time its own submission.
+// Timing: the read sweep and the fill take an optional pair of CUDA events
+// (`start`, `end`: made by the caller and kept across calls). The call records
+// `start` before its launches and `end` after them on the same stream, and
+// returns without waiting, so the caller can queue the next launch behind this
+// one and read the time between the two events once the stream has passed
+// `end`: a start event queued behind running work opens when that work ends,
+// so each reading is one launch's device time. k8w_time_graph launches a
+// captured CUDA graph (the probe's GEMM chain, a collective) between events
+// of its own, waits for the second and returns the time. Launches and events
+// leave in one C call, so no host delay can fall between them: the probe
+// shares its Python process with the watcher's ingest threads, and a window
+// opened from Python also timed the probe thread's waits for the interpreter
+// lock. The graph's window also opens behind a gate (see k8w_time_graph),
+// since a sub-millisecond graph would otherwise time its own submission.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -197,7 +201,7 @@ __global__ void gate_kernel(const volatile int* open) {
     } while (t - t0 < GATE_LIMIT_NS);
 }
 
-// The optional device-time window of one entry point (`ms` null: untimed).
+// The device-time window of k8w_time_graph (`ms` null: untimed).
 struct Window {
     cudaEvent_t start = nullptr;
     cudaEvent_t end = nullptr;
@@ -215,17 +219,22 @@ struct Window {
         return e;
     }
 
-    // after the launches: their error first, else the window's (`recorded`:
-    // the caller already recorded the end event)
-    cudaError_t close(float* ms, cudaStream_t s, bool recorded = false) {
+    // after the launches and the end event's record: their error first, else
+    // the window's
+    cudaError_t close(float* ms) {
         cudaError_t e = cudaGetLastError();
         if (e != cudaSuccess || !ms) return e;
-        if (!recorded) e = cudaEventRecord(end, s);
-        if (e == cudaSuccess) e = cudaEventSynchronize(end);
+        e = cudaEventSynchronize(end);
         if (e == cudaSuccess) e = cudaEventElapsedTime(ms, start, end);
         return e;
     }
 };
+
+// Records `event` on `s` where it is not null: a self-timed launch's start or
+// end (see "Timing" above).
+cudaError_t mark(void* event, cudaStream_t s) {
+    return event ? cudaEventRecord(static_cast<cudaEvent_t>(event), s) : cudaSuccess;
+}
 
 }  // namespace
 
@@ -233,26 +242,28 @@ extern "C" {
 
 // x: (rows, 512) f32; partials: (num_ctas, 512) f32 scratch; out: (1, 512) f32.
 int k8w_hbm_read_sweep(const float* x, long long rows, int repeats, float* partials,
-                       int num_ctas, float* out, void* stream, float* elapsed_ms) {
+                       int num_ctas, float* out, void* stream, void* start, void* end) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    Window w;
-    cudaError_t e = w.open(elapsed_ms, s);
+    cudaError_t e = mark(start, s);
     if (e != cudaSuccess) return static_cast<int>(e);
     read_sweep_kernel<<<num_ctas, SWEEP_THREADS, 0, s>>>(
         reinterpret_cast<const float4*>(x), rows, repeats, reinterpret_cast<float4*>(partials));
     column_total_kernel<<<(READ_WIDTH + 127) / 128, 128, 0, s>>>(partials, num_ctas, out);
-    return static_cast<int>(w.close(elapsed_ms, s));
+    e = cudaGetLastError();
+    if (e == cudaSuccess) e = mark(end, s);
+    return static_cast<int>(e);
 }
 
 // seed: 1 f32 on the device; out: n_elems f32, n_elems a multiple of 4.
 int k8w_hbm_fill(const float* seed, float* out, long long n_elems, int repeats, int num_ctas,
-                 void* stream, float* elapsed_ms) {
+                 void* stream, void* start, void* end) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    Window w;
-    cudaError_t e = w.open(elapsed_ms, s);
+    cudaError_t e = mark(start, s);
     if (e != cudaSuccess) return static_cast<int>(e);
     fill_kernel<<<num_ctas, FILL_THREADS, 0, s>>>(seed, reinterpret_cast<float4*>(out), n_elems / 4, repeats);
-    return static_cast<int>(w.close(elapsed_ms, s));
+    e = cudaGetLastError();
+    if (e == cudaSuccess) e = mark(end, s);
+    return static_cast<int>(e);
 }
 
 // One launch of an instantiated CUDA graph, timed (elapsed_ms required),
@@ -282,7 +293,7 @@ int k8w_time_graph(void* graph_exec, void* before_exec, void* stream, float* ela
     if (e == cudaSuccess && elapsed_ms) e = cudaEventRecord(w.end, s);
     __atomic_store_n(gate, 1, __ATOMIC_SEQ_CST);  // open the gate on every path
     if (e != cudaSuccess) return static_cast<int>(e);
-    return static_cast<int>(w.close(elapsed_ms, s, /*recorded=*/true));
+    return static_cast<int>(w.close(elapsed_ms));
 }
 
 // x: num_blocks write blocks of 512 x 256 f32; out: num_blocks f32.

@@ -123,8 +123,8 @@ def load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build()))
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             f32p = ctypes.POINTER(ctypes.c_float)
-            lib.k8w_hbm_read_sweep.argtypes = [ptr, i64, i32, ptr, i32, ptr, ptr, f32p]
-            lib.k8w_hbm_fill.argtypes = [ptr, ptr, i64, i32, i32, ptr, f32p]
+            lib.k8w_hbm_read_sweep.argtypes = [ptr, i64, i32, ptr, i32, ptr, ptr, ptr, ptr]
+            lib.k8w_hbm_fill.argtypes = [ptr, ptr, i64, i32, i32, ptr, ptr, ptr]
             lib.k8w_hbm_blocksums.argtypes = [ptr, i32, ptr, ptr]
             lib.k8w_time_graph.argtypes = [ptr, ptr, ptr, f32p]
             for fn in (lib.k8w_hbm_read_sweep, lib.k8w_hbm_fill, lib.k8w_hbm_blocksums, lib.k8w_time_graph):

@@ -15,15 +15,15 @@ A wrapper given a CPU tensor runs the plain PyTorch version beside it; given a
 CUDA tensor it launches the kernel or raises. It never falls back.
 
 :func:`read_sweep` and :func:`fill` take an optional ``timer`` (a
-``ctypes.c_float``, CUDA tensors only): the C entry point then brackets its
-launches with CUDA events itself, waits for them, and stores the device time
-in ms.
+:class:`LaunchTimer`, CUDA tensors only): the C entry point then brackets its
+launches with the timer's CUDA events itself and returns without waiting; the
+timer reads the device time in ms once the stream has passed them.
 """
 
 from __future__ import annotations
 
-import ctypes
-from typing import Optional
+import threading
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -88,14 +88,85 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _timer_ref(timer: Optional[ctypes.c_float], device: torch.device):
+class _EventPairs:
+    """Timing CUDA event pairs, kept for the process: a free list per device."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._free: Dict[int, List[Tuple[torch.cuda.Event, torch.cuda.Event]]] = {}
+
+    def take(self, device: torch.device) -> Tuple[torch.cuda.Event, torch.cuda.Event]:
+        with self._lock:
+            free = self._free.setdefault(device.index, [])
+            if free:
+                return free.pop()
+        pair = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        stream = torch.cuda.current_stream(device)
+        for event in pair:
+            event.record(stream)  # PyTorch creates an event at its first record
+        return pair
+
+    def give(self, device: torch.device, pair: Tuple[torch.cuda.Event, torch.cuda.Event]) -> None:
+        with self._lock:
+            self._free[device.index].append(pair)
+
+
+_EVENT_PAIRS = _EventPairs()
+
+
+class LaunchTimer:
+    """The device time of one self-timed launch, in ms: ``value``.
+
+    A wrapper given one on a CUDA tensor takes a pair of CUDA events from its
+    device's pool (:meth:`arm`); its C entry point records them around its
+    launches and returns without waiting. :meth:`pending` asks, without
+    waiting, whether the launch is still queued or running; :meth:`wait`
+    waits for its end; :meth:`read` waits, sets ``value`` from the time
+    between the two events and gives the pair back. A timer no wrapper armed
+    (a stand-in that sets ``value`` itself) is never pending and reads as
+    set."""
+
+    __slots__ = ("value", "_device", "_pair")
+
+    def __init__(self):
+        self.value: Optional[float] = None
+        self._device: Optional[torch.device] = None
+        self._pair: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
+
+    def arm(self, device: torch.device) -> Tuple[int, int]:
+        """The raw start and end events for a launch on ``device``."""
+        _require(self._pair is None, "timer: already armed by a launch not read yet")
+        self._device, self._pair = device, _EVENT_PAIRS.take(device)
+        return tuple(event.cuda_event for event in self._pair)
+
+    def pending(self) -> bool:
+        return self._pair is not None and not self._pair[1].query()
+
+    def wait(self) -> None:
+        if self._pair is not None:
+            self._pair[1].synchronize()
+
+    def read(self) -> Optional[float]:
+        if self._pair is not None:
+            self.wait()
+            start, end = self._pair
+            self.value = start.elapsed_time(end)
+            _EVENT_PAIRS.give(self._device, self._pair)
+            self._pair = None
+        return self.value
+
+
+def _check_timer(timer: Optional[LaunchTimer], device: torch.device) -> None:
     _require(timer is None or device.type == "cuda", "timer: the kernels time themselves on CUDA tensors only")
-    return ctypes.byref(timer) if timer is not None else None
 
 
-def read_sweep(x: torch.Tensor, repeats: int, *, timer: Optional[ctypes.c_float] = None) -> torch.Tensor:
+def _events(timer: Optional[LaunchTimer], device: torch.device) -> Tuple[Optional[int], Optional[int]]:
+    return timer.arm(device) if timer is not None else (None, None)
+
+
+def read_sweep(x: torch.Tensor, repeats: int, *, timer: Optional[LaunchTimer] = None) -> torch.Tensor:
     """``repeats`` passes of column sums over ``x`` (rows, WIDTH) -> (1, WIDTH)."""
-    timer_ref = _timer_ref(timer, x.device)
+    _check_timer(timer, x.device)
     _check_f32(x, "read_sweep x")
     _require(x.dim() == 2 and x.shape[1] == WIDTH and x.shape[0] > 0,
              f"read_sweep x: expected (rows, {WIDTH}), got {tuple(x.shape)}")
@@ -109,7 +180,7 @@ def read_sweep(x: torch.Tensor, repeats: int, *, timer: Optional[ctypes.c_float]
     with torch.cuda.device(x.device):
         code = lib.k8w_hbm_read_sweep(
             x.data_ptr(), x.shape[0], repeats, partials.data_ptr(), num_ctas,
-            out.data_ptr(), _stream(x.device), timer_ref,
+            out.data_ptr(), _stream(x.device), *_events(timer, x.device),
         )
     build.check(lib, code, "read_sweep")
     build.count("read_sweep")
@@ -117,13 +188,13 @@ def read_sweep(x: torch.Tensor, repeats: int, *, timer: Optional[ctypes.c_float]
 
 
 def fill(seed: torch.Tensor, num_blocks: int, repeats: int, *,
-         timer: Optional[ctypes.c_float] = None) -> torch.Tensor:
+         timer: Optional[LaunchTimer] = None) -> torch.Tensor:
     """``repeats`` passes stamping write block ``i`` with ``i + 1 + seed``.
 
     ``seed`` is a one-element f32 tensor on the target device, read by the
     kernel at run time. Returns the ``(num_blocks * WRITE_BLOCK_ROWS,
     WRITE_WIDTH)`` buffer."""
-    timer_ref = _timer_ref(timer, seed.device)
+    _check_timer(timer, seed.device)
     _check_f32(seed, "fill seed")
     _require(seed.numel() == 1, f"fill seed: expected one element, got {seed.numel()}")
     _require(num_blocks >= 1, f"fill: num_blocks must be >= 1, got {num_blocks}")
@@ -136,7 +207,7 @@ def fill(seed: torch.Tensor, num_blocks: int, repeats: int, *,
     with torch.cuda.device(seed.device):
         code = lib.k8w_hbm_fill(
             seed.data_ptr(), out.data_ptr(), out.numel(), repeats,
-            _launch_ctas(seed.device), _stream(seed.device), timer_ref,
+            _launch_ctas(seed.device), _stream(seed.device), *_events(timer, seed.device),
         )
     build.check(lib, code, "fill")
     build.count("fill")

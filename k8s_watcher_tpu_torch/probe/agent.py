@@ -358,8 +358,8 @@ class ProbeAgent:
     def _record_cycle(self, report: ProbeReport) -> None:
         """Fold one completed cycle into the flight-recorder ring, with its
         spans (the one just closed on this thread): each stage's ms and the
-        cycle's self time, its readbacks, GC ms, device allocations (CUDA)
-        and graph captures."""
+        cycle's self time, its readbacks and queued launches, GC ms, device
+        allocations (CUDA) and graph captures."""
         cycle = spans.RECORDER.last()
         entry = {
             "ts": datetime.datetime.now(datetime.timezone.utc).isoformat(timespec="seconds"),
@@ -378,6 +378,7 @@ class ProbeAgent:
             ],
             "stages_ms": {name: round(ms, 3) for name, ms in cycle.stages_ms().items()},
             "syncs": cycle.counters["syncs"],
+            "queued_launches": cycle.counters["queued_launches"],
             "collectives": cycle.counters["collectives"],
             "gc_ms": round(cycle.gc_ms(), 3),
             "device_allocs": cycle.counters.get("device_allocs"),

@@ -104,15 +104,69 @@ def test_device_timing_ignores_threads_holding_the_interpreter(cuda_device):
 
 
 def test_kernels_time_themselves(cuda_device):
-    import ctypes
-
+    """A timed launch returns before the device has run it; its timer reads
+    the device time once waited on, and its events go back to the pool."""
     x = torch.ones((64 * K.BLOCK_ROWS, K.WIDTH), device=cuda_device)
-    timer = ctypes.c_float()
+    timer = K.LaunchTimer()
     out = K.read_sweep(x, 4, timer=timer)
-    assert torch.equal(out, K.read_sweep_plain(x, 4)) and timer.value > 0
-    fill_timer = ctypes.c_float()
-    K.fill(carry.seed(1.0, cuda_device), 64, 4, timer=fill_timer)
-    assert fill_timer.value > 0
+    assert torch.equal(out, K.read_sweep_plain(x, 4)) and timer.read() > 0
+    fill_timer = K.LaunchTimer()
+    K.fill(carry.seed(1.0, cuda_device), 64, 64, timer=fill_timer)
+    assert fill_timer.read() > 0 and not fill_timer.pending()
+    # queued behind ~60 ms of spinning, a launch's window opens when the spin ends
+    behind = K.LaunchTimer()
+    torch.cuda._sleep(int(1e8))
+    K.fill(carry.seed(1.0, cuda_device), 64, 64, timer=behind)
+    assert behind.pending() and behind.value is None
+    assert 0 < behind.read() < 2 * fill_timer.value, (behind.value, fill_timer.value)
+
+
+def test_a_cycle_on_card_queues_each_hbm_stages_launches_and_waits_once(cuda_device):
+    """Each HBM stage queues its 4 timed launches behind the launch before
+    them (8 a cycle) and reads back once, after them, in its check; its
+    readings are each one launch's device time, within 20% of the kernels'
+    lone times at the same shapes (128 MiB, past the 50 MB L2: the read
+    buffer is ``test_kernels_time_themselves``' 64 read blocks)."""
+    from k8s_watcher_tpu_torch.probe import spans
+
+    hbm_bytes = 128 << 20
+    config = TpuConfig(probe_hbm_bytes=hbm_bytes, probe_links_enabled=True)
+    agent = ProbeAgent(config, environment="development", sink=lambda n: None, device=cuda_device)
+    reports, cycles = [], []
+    for _ in range(3):
+        reports.append(agent.run_once())
+        cycles.append(spans.RECORDER.last())
+    assert all(r.healthy for r in reports), [r.to_payload() for r in reports]
+    for cycle in cycles:
+        assert cycle.counters["queued_launches"] == 8
+        where = [s.parent.name for s in cycle.named("probe.sync") if s.parent.name.startswith("probe.hbm")]
+        assert where == ["probe.hbm_read.verify", "probe.hbm_write.verify"], where
+    assert [c.counters["syncs"] for c in cycles[1:]] == [7, 7]
+    assert [e["queued_launches"] for e in agent.recent_cycles(3)] == [8, 8, 8]
+    repeats = port._pick_repeats(hbm_bytes)
+    x = torch.ones((hbm_bytes // K.BYTES_PER_BLOCK * K.BLOCK_ROWS, K.WIDTH), device=cuda_device)
+    lone_read, lone_fill = K.LaunchTimer(), K.LaunchTimer()
+    K.read_sweep(x, repeats, timer=lone_read)
+    read_ms = lone_read.read() / repeats
+    K.fill(carry.seed(1.0, cuda_device), hbm_bytes // K.WRITE_BYTES_PER_BLOCK, repeats, timer=lone_fill)
+    fill_ms = lone_fill.read() / repeats
+    print("queued card cycles: counters", [c.counters for c in cycles], "lone ms a pass", read_ms, fill_ms,
+          "cycles' ms a pass", [(r.hbm["time_ms"], r.hbm_write["time_ms"]) for r in reports],
+          "stages_ms", [e["stages_ms"] for e in agent.recent_cycles(3)])
+    for r in reports:
+        assert abs(r.hbm["time_ms"] / read_ms - 1) < 0.2, (r.hbm, read_ms)
+        assert abs(r.hbm_write["time_ms"] / fill_ms - 1) < 0.2, (r.hbm_write, fill_ms)
+
+
+def test_a_stage_over_its_budget_stops_after_one_more_launch_and_reports(cuda_device, monkeypatch):
+    monkeypatch.setattr(port, "BUDGET_MS", 1.0)
+    build.reset_launch_counts()
+    read = port.run_hbm_probe(32 << 20, device=cuda_device)
+    write = port.run_hbm_write_probe(32 << 20, device=cuda_device)
+    counts = build.launch_counts()
+    assert read["ok"] and write["ok"] and read["read_gbps"] > 0 and write["write_gbps"] > 0, (read, write)
+    # the untimed launch and at most 2 timed ones each
+    assert 2 <= counts["read_sweep"] <= 3 and 2 <= counts["fill"] <= 3 and counts["blocksums"] == 1, counts
 
 
 def _fleet_columns(seed, n_slices):
@@ -436,8 +490,8 @@ def test_a_one_rank_cycle_on_card_keeps_its_chain_and_takes_no_fence_baseline(cu
     for report, cycle in zip(reports, cycles):
         assert report.hbm["fence_baseline_ms"] == report.hbm_write["fence_baseline_ms"] == 0.0
         in_setup = [s.parent.name for s in cycle.named("probe.sync")]
-        # the integrity read; the first fill's fence and the four seeds' (each stage's
-        # fence baseline took one more readback here)
-        assert (in_setup.count("probe.hbm_read.setup"), in_setup.count("probe.hbm_write.setup")) == (1, 5)
+        # no readback in either set-up: the first launches and the seeds are queued
+        # unfenced, and each stage reads back once in its check
+        assert (in_setup.count("probe.hbm_read.setup"), in_setup.count("probe.hbm_write.setup")) == (0, 0)
     print("one-rank card cycles: chain round ms", [r.ici.psum_rtt_median_ms for r in reports],
           "counters", [c.counters for c in cycles])

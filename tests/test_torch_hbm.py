@@ -138,6 +138,7 @@ class TestWrappers:
         lambda: K.fill(torch.ones((1, 1)), 0, 1),
         lambda: K.blocksums(torch.ones((K.WRITE_BLOCK_ROWS + 1, K.WRITE_WIDTH))),
         lambda: K.read_sweep(torch.ones((4, K.WIDTH), device="meta"), 1),
+        lambda: K.read_sweep(torch.ones((4, K.WIDTH)), 1, timer=K.LaunchTimer()),
     ])
     def test_wrappers_reject_what_the_kernels_do_not_take(self, bad):
         with pytest.raises(ValueError):
@@ -153,3 +154,110 @@ class TestWrappers:
         path = build.library_path()
         assert path.parent == build.BUILD_DIR and path.suffix == ".so"
         assert path == build.library_path()
+
+
+class TestQueuedStages:
+    """The card's path of the HBM stages, on the CPU: each stage queues its
+    launches back to back and waits once, on its check's readback."""
+
+    class Timer:
+        """A stand-in for ``kernels.LaunchTimer``: queued or running until
+        waited on; each wait takes ``wait_s``."""
+
+        def __init__(self, log, wait_s=0.0, pending=True):
+            self.log, self.wait_s, self._pending, self.value = log, wait_s, pending, None
+            self.n = sum(1 for entry in log if entry[0] == "launch")
+
+        def pending(self):
+            return self._pending
+
+        def wait(self):
+            import time
+
+            time.sleep(self.wait_s)
+            self.log.append(("wait", self.n))
+            self._pending = False
+
+    @pytest.mark.parametrize("budget_ms, wait_s, after_pending, launches, queued", [
+        (10_000.0, 0.0, True, 4, 4),  # a quiet part: every timed launch queued behind the last
+        (10_000.0, 0.0, False, 4, 3),  # the untimed launch had ended when the first timed one left
+        (1.0, 0.01, True, 2, 2),  # one launch overruns the budget: at most one more leaves
+    ])
+    def test_each_launch_leaves_before_the_host_waits_on_the_one_before(
+            self, monkeypatch, budget_ms, wait_s, after_pending, launches, queued):
+        from k8s_watcher_tpu_torch.probe import spans
+
+        log = []
+        monkeypatch.setattr(port, "BUDGET_MS", budget_ms)
+        monkeypatch.setattr(port.kernels, "LaunchTimer", lambda: self.Timer(log, wait_s))
+
+        def run(timer):
+            log.append(("launch", timer.n))
+            timer.value = 0.5
+
+        with spans.cycle():
+            timers = port._queued_timers(run, self.Timer(log, pending=after_pending), 4)
+        want = [("launch", 0), ("launch", 1), ("wait", 0), ("launch", 2), ("wait", 1), ("launch", 3), ("wait", 2)]
+        assert log == want[: {4: 7, 2: 3}[launches]]
+        assert len(timers) == launches and all(t.value == 0.5 for t in timers)
+        assert spans.RECORDER.last().counters["queued_launches"] == queued
+
+    @staticmethod
+    def _self_timed(monkeypatch, calls):
+        from k8s_watcher_tpu_torch.probe import timing
+
+        monkeypatch.setattr(timing, "timed_on_device", lambda device: True)
+        for name in ("read_sweep", "fill"):
+            def run(*args, timer=None, _kernel=getattr(K, name), _name=name, **kwargs):
+                calls.append((_name, timer is not None))
+                if timer is not None:
+                    timer.value = 0.25
+                return _kernel(*args, **kwargs)
+
+            monkeypatch.setattr(K, name, run)
+
+    @pytest.mark.parametrize("corrupt", [False, True])
+    def test_a_stage_on_the_cards_path_reads_back_once_after_its_launches(self, monkeypatch, corrupt):
+        from k8s_watcher_tpu_torch.probe import spans
+
+        calls = []
+        self._self_timed(monkeypatch, calls)
+        delta = _delta(2 * ref.WRITE_BLOCK_ROWS, corrupt)
+        with spans.cycle():
+            read = port.run_hbm_probe(1 << 22, device="cpu")
+            write = port.run_hbm_write_probe(1 << 22, device="cpu", corrupt_hook=carry.additive_hook(delta))
+        cycle = spans.RECORDER.last()
+        assert read["ok"] and read["time_ms"] == write["time_ms"] == 0.25 and read["fence_baseline_ms"] == 0.0
+        assert write["ok"] is (not corrupt)
+        assert [b["block"] for b in write["bad_blocks"]] == ([1] if corrupt else [])
+        # every launch of a stage carries a timer; the untimed one's marks its end
+        assert calls == [("read_sweep", True)] * 5 + [("fill", True)] * 5
+        assert [s.parent.name for s in cycle.named("probe.sync")] == ["probe.hbm_read.verify", "probe.hbm_write.verify"]
+        assert cycle.counters["syncs"] == 2 and cycle.counters["queued_launches"] == 0
+
+    def test_the_cpu_path_queues_nothing_and_keeps_its_readbacks(self):
+        from k8s_watcher_tpu_torch.probe import spans
+
+        with spans.cycle():
+            assert port.run_hbm_probe(1 << 22, device="cpu")["ok"]
+            assert port.run_hbm_write_probe(1 << 22, device="cpu")["ok"]
+        cycle = spans.RECORDER.last()
+        where = [s.parent.name for s in cycle.named("probe.sync")]
+        # the integrity read and the fence baseline's warm readback; the first fill's
+        # fence, the baseline's, the four seeds' and the block sums'
+        assert where == ["probe.hbm_read.setup"] * 2 + ["probe.hbm_write.setup"] * 6 + ["probe.hbm_write.verify"]
+        assert cycle.counters["queued_launches"] == 0 and cycle.counters["syncs"] == 9
+
+    def test_an_unarmed_timer_keeps_the_value_a_stand_in_set(self):
+        timer = K.LaunchTimer()
+        timer.value = 0.5
+        timer.wait()
+        assert not timer.pending() and timer.read() == 0.5
+
+    def test_the_seeds_come_from_one_tensor_in_16_byte_rows(self):
+        seeds = carry.seeds([0.0, 1.0, 2.0, 3.5], CPU)
+        assert all(s.numel() == 1 and s.is_contiguous() for s in seeds)
+        assert len({s.untyped_storage().data_ptr() for s in seeds}) == 1
+        assert [s.data_ptr() - seeds[0].data_ptr() for s in seeds] == [0, 16, 32, 48]
+        for s, value in zip(seeds, (0.0, 1.0, 2.0, 3.5)):
+            assert torch.equal(K.fill(s, 2, 1), K.fill(carry.seed(value, CPU), 2, 1))
