@@ -199,6 +199,20 @@ import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+# phase 9's seeded cluster and its plain fold, shared with the benchmark's
+# watcher cell (the port's tests read facts_of and UNWATCHED_NAMESPACE here)
+from portbench.reference.watcher import facts_of, fold_production  # noqa: F401
+from portbench.traffic.apiserver import LEASE_PATH, PodsAndLeases
+from portbench.traffic.cluster import (  # noqa: F401
+    GPU_KEY,
+    GPU_PRESENT_LABEL,
+    GPU_PRODUCT,
+    GPU_PRODUCT_LABEL,
+    UNWATCHED_NAMESPACE,
+    WATCHED_NAMESPACES,
+    GpuCluster,
+)
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data sheet, dense: HBM3 rate, bf16 tensor-core and f32 rates
@@ -427,21 +441,7 @@ def kernel_timings(torch, K, dev, buf: int, repeats: int) -> list:
 
 # -- phase 9: the watcher on a seeded GPU cluster --------------------------------
 
-GPU_KEY = "nvidia.com/gpu"
-WATCHED_NAMESPACES = ("default", "production", "monitoring", "kube-system")
-UNWATCHED_NAMESPACE = "batch"
-JOBSET_LABEL = "jobset.sigs.k8s.io/jobset-name"
-REPLICATED_LABEL = "jobset.sigs.k8s.io/replicatedjob-name"
-INDEX_LABEL = "apps.kubernetes.io/pod-index"
 STATUS_TOKEN = "chip-smoke-status-token"
-# the GPU node labels of the NVIDIA GPU operator's feature discovery; the
-# watcher's node selector and accelerator label are pointed at them
-GPU_PRESENT_LABEL = "nvidia.com/gpu.present"
-GPU_PRODUCT_LABEL = "nvidia.com/gpu.product"
-GPU_PRODUCT = "NVIDIA-H100-80GB-HBM3"
-CPU_NODES = 8
-LEASE_PATH = "/apis/coordination.k8s.io/v1/namespaces/"
-T0 = "2026-10-01T00:00:00Z"
 CHURN_DRAIN_LIMIT_S = 120.0
 WATCHER_PROBE_CYCLES = 3
 LIST_PAGE = 500
@@ -451,361 +451,6 @@ SCENARIOS = 32
 # a probe reading taken while an analytics request ran may differ from the
 # quiet card's (phase 4) by at most this share
 READING_TOLERANCE = 0.20
-
-
-def _pod_status(phase: str, ready: bool, restarts: int, host_ip: str, pod_ip: str, image: str) -> dict:
-    flag = "True" if ready else "False"
-    if phase == "Running":
-        state = {"running": {"startedAt": T0}}
-    elif phase == "Failed":
-        state = {"terminated": {"exitCode": 1, "reason": "Error", "startedAt": T0, "finishedAt": T0}}
-    else:
-        state = {"waiting": {"reason": "ContainerCreating"}}
-    return {
-        "phase": phase,
-        "conditions": [{"type": kind, "status": status, "lastTransitionTime": T0} for kind, status in (
-            ("PodScheduled", "True"), ("Initialized", "True"), ("ContainersReady", flag), ("Ready", flag))],
-        "hostIP": host_ip, "podIP": pod_ip, "startTime": T0, "qosClass": "Burstable",
-        "containerStatuses": [
-            {"name": "main", "ready": ready, "restartCount": restarts, "started": phase == "Running",
-             "image": image, "state": state},
-            {"name": "log-agent", "ready": ready, "restartCount": 0, "started": phase == "Running",
-             "image": "registry.example.com/log-agent:0.9.1", "state": state},
-        ],
-    }
-
-
-_encode = json.JSONEncoder(separators=(",", ":")).encode
-
-
-class _PodSpec:
-    """One pod's fixed parts: identity, labels, owner, placement, containers.
-    ``pod()`` renders it at a state as a dict, ``encode()`` as the same JSON
-    bytes with the fixed parts serialized once."""
-
-    __slots__ = ("namespace", "uid", "gpus", "jobset", "metadata", "spec", "ips", "image", "_parts")
-
-    def __init__(self, rng, *, name, namespace, uid, node, node_ip, gpus, labels, owner_kind, owner_name):
-        self.namespace, self.uid, self.gpus = namespace, uid, gpus
-        self.jobset = f"{namespace}/{labels[JOBSET_LABEL]}/{labels[REPLICATED_LABEL]}" if JOBSET_LABEL in labels \
-            else None
-        self.image = "registry.example.com/train:1.4.2" if gpus else "registry.example.com/service:2.7.0"
-        requests = {"cpu": "4", "memory": "16Gi"}
-        limits = {"cpu": "8", "memory": "32Gi"}
-        if gpus:
-            requests[GPU_KEY] = limits[GPU_KEY] = str(gpus)
-        env = [{"name": f"APP_SETTING_{i:02d}", "value": f"{rng.getrandbits(96):024x}"}
-               for i in range(rng.randrange(0, 24))]
-        self.metadata = {
-            "name": name, "generateName": name.rsplit("-", 1)[0] + "-", "namespace": namespace, "uid": uid,
-            "creationTimestamp": T0, "labels": labels,
-            "annotations": {"kubectl.kubernetes.io/default-container": "main", "prometheus.io/scrape": "true"},
-            "ownerReferences": [{"apiVersion": "batch/v1" if owner_kind == "Job" else "apps/v1",
-                                 "kind": owner_kind, "name": owner_name, "uid": f"owner-{owner_name}",
-                                 "controller": True, "blockOwnerDeletion": True}],
-        }
-        self.spec = {
-            "nodeName": node, "serviceAccountName": "default", "restartPolicy": "Never" if gpus else "Always",
-            "schedulerName": "default-scheduler", "priority": 0, "terminationGracePeriodSeconds": 30,
-            "containers": [
-                {"name": "main", "image": self.image, "command": ["/bin/entrypoint"],
-                 "args": ["--config", "/etc/app/config.yaml"], "env": env,
-                 "resources": {"requests": requests, "limits": limits},
-                 "ports": [{"containerPort": 8080, "name": "http", "protocol": "TCP"}],
-                 "volumeMounts": [{"name": "config", "mountPath": "/etc/app"},
-                                  {"name": "kube-api-access", "readOnly": True,
-                                   "mountPath": "/var/run/secrets/kubernetes.io/serviceaccount"}],
-                 "readinessProbe": {"httpGet": {"path": "/healthz", "port": 8080}, "periodSeconds": 10}},
-                {"name": "log-agent", "image": "registry.example.com/log-agent:0.9.1",
-                 "resources": {"requests": {"cpu": "100m", "memory": "128Mi"}},
-                 "volumeMounts": [{"name": "logs", "mountPath": "/var/log/app"}]},
-            ],
-            "tolerations": [{"key": GPU_KEY, "operator": "Exists", "effect": "NoSchedule"}] if gpus else [],
-            "volumes": [{"name": "config", "configMap": {"name": f"{owner_name}-config"}},
-                        {"name": "logs", "emptyDir": {}}],
-        }
-        self.ips = (node_ip, f"10.{rng.randrange(64, 128)}.{rng.randrange(256)}.{rng.randrange(1, 255)}")
-        self._parts = None
-
-    @property
-    def name(self) -> str:
-        return self.metadata["name"]
-
-    def pod(self, rv: int, phase: str, ready: bool, restarts: int) -> dict:
-        return {"apiVersion": "v1", "kind": "Pod", "metadata": {**self.metadata, "resourceVersion": str(rv)},
-                "spec": self.spec, "status": _pod_status(phase, ready, restarts, *self.ips, self.image)}
-
-    def encode(self, rv: int, phase: str, ready: bool, restarts: int) -> bytes:
-        if self._parts is None:
-            meta = _encode(self.metadata).encode()
-            self._parts = (b'{"apiVersion":"v1","kind":"Pod","metadata":' + meta[:-1] + b',"resourceVersion":"',
-                           b'"},"spec":' + _encode(self.spec).encode() + b',"status":')
-        head, middle = self._parts
-        status = _encode(_pod_status(phase, ready, restarts, *self.ips, self.image)).encode()
-        return b"%s%d%s%s}" % (head, rv, middle, status)
-
-
-class GpuCluster:
-    """A seeded GPU cluster: the pods a LIST returns and the churn a WATCH then
-    delivers, as steps ``(type, spec, phase, ready, restarts, rv)`` in
-    resourceVersion order (``initial``, ``churn``).
-
-    ``jobsets`` JobSets of ``workers`` GPU workers each in ``jobset_namespace``
-    (``nvidia.com/gpu: 8``, JobSet name, replicated-job name and pod index
-    labels), listed Pending; the churn takes each to Running, then Ready.
-    ``failures`` JobSets lose one Ready worker: Failed, DELETED, and a
-    replacement ADDED that goes Running and Ready. The rest of the pods are
-    services without GPUs over the four watched namespaces, ``batch_share``
-    of all pods in ``batch`` (which the watcher does not watch; 1% of those
-    request GPUs), and the rest of the churn is MODIFIED status churn
-    (restarts, readiness flips) on pods without GPUs. ``down_deletions`` are
-    GPU workers of healthy JobSets to delete while the watcher is down.
-
-    The node churn (``node_steps``, from its own seeded stream): at a third
-    of the pod churn the nodes of ``node_flips`` workers of healthy JobSets go
-    ``Ready=False`` and the node of one more healthy JobSet's worker is
-    deleted; at two thirds the flipped nodes come back ``Ready``. Each step is
-    ``(position, type, node, ready)``: the node event lands before
-    ``churn[position]``. ``namespaces`` are the watched namespaces the
-    services spread over."""
-
-    def __init__(self, seed: int = 0, *, nodes: int = 2048, pods: int = 50000, jobsets: int = 256,
-                 workers: int = 8, churn: int = 60000, failures: int = 32, batch_share: float = 0.10,
-                 down_deletions: int = 16, jobset_namespace: str = "production",
-                 namespaces=WATCHED_NAMESPACES, node_flips: int = 16):
-        import random
-
-        rng = random.Random(seed)
-        self.nodes = nodes
-        node_ips = [f"172.16.{i // 250}.{i % 250 + 1}" for i in range(nodes)]
-        state = {}  # uid -> [phase, ready, restarts]
-        specs = []
-
-        def new_pod(name, namespace, gpus, labels, owner_kind, owner_name, phase, ready, node=None):
-            i = rng.randrange(nodes) if node is None else node % nodes
-            spec = _PodSpec(rng, name=name, namespace=namespace, uid=f"uid-{len(state):06d}-{rng.getrandbits(32):08x}",
-                            node=f"gpu-node-{i:04d}", node_ip=node_ips[i], gpus=gpus, labels=labels,
-                            owner_kind=owner_kind, owner_name=owner_name)
-            state[spec.uid] = [phase, ready, 0]
-            return spec
-
-        jobset_workers = {}
-        for j in range(jobsets):
-            js = f"train-{j:03d}"
-            members = [new_pod(f"{js}-workers-0-{w}-{rng.getrandbits(20):05x}", jobset_namespace, 8,
-                               {JOBSET_LABEL: js, REPLICATED_LABEL: "workers", INDEX_LABEL: str(w),
-                                "batch.kubernetes.io/job-name": f"{js}-workers-0"},
-                               "Job", f"{js}-workers-0", "Pending", False, node=j * workers + w)
-                       for w in range(workers)]
-            jobset_workers[members[0].jobset] = members
-            specs.extend(members)
-        n_batch = int(round(batch_share * pods))
-        for i in range(pods - jobsets * workers):
-            if i < n_batch:
-                ns, gpus = UNWATCHED_NAMESPACE, (8 if i % 100 == 0 else 0)
-            else:
-                ns, gpus = namespaces[i % len(namespaces)], 0
-            app = f"svc-{i % 997:03d}"
-            specs.append(new_pod(f"{app}-{rng.getrandbits(40):010x}", ns, gpus,
-                                 {"app": app, "pod-template-hash": "7d4b9c"}, "ReplicaSet", f"{app}-7d4b9c",
-                                 "Running", True))
-        self.initial = [("ADDED", spec, *state[spec.uid], rv) for rv, spec in enumerate(specs, start=1)]
-        self.list_rv = len(specs)
-
-        # per-pod sequences of (spec, type, phase, ready); None = status churn
-        sequences = []
-        self.failed_jobsets = sorted(rng.sample(sorted(jobset_workers), failures))
-        for key, members in jobset_workers.items():
-            fail = rng.randrange(workers) if key in self.failed_jobsets else None
-            for w, spec in enumerate(members):
-                seq = [(spec, "MODIFIED", "Running", False), (spec, "MODIFIED", "Running", True)]
-                if w == fail:
-                    labels = spec.metadata["labels"]
-                    replacement = new_pod(f"{labels[JOBSET_LABEL]}-workers-0-{w}-{rng.getrandbits(20):05x}",
-                                          jobset_namespace, 8, labels, "Job", f"{labels[JOBSET_LABEL]}-workers-0",
-                                          "Pending", False, node=int(spec.spec["nodeName"][-4:]))
-                    seq += [(spec, "MODIFIED", "Failed", False), (spec, "DELETED", "Failed", False),
-                            (replacement, "ADDED", "Pending", False), (replacement, "MODIFIED", "Running", True)]
-                sequences.append(seq)
-        plain = [s for s in specs if not s.gpus]
-        remaining = churn - sum(len(s) for s in sequences)
-        if remaining < 0:
-            raise ValueError(f"churn={churn} is below the {churn - remaining} GPU worker events")
-        per_pod = {}
-        for _ in range(remaining):
-            spec = plain[rng.randrange(len(plain))]
-            per_pod[spec.uid] = (spec, per_pod.get(spec.uid, (spec, 0))[1] + 1)
-        sequences.extend([(spec, "MODIFIED", None, None)] * k for spec, k in per_pod.values())
-        timed = []
-        for n, seq in enumerate(sequences):
-            times = sorted(rng.random() for _ in seq)
-            timed.extend((t, n, step) for t, step in zip(times, seq))
-        timed.sort(key=lambda item: item[:2])
-        self.churn = []
-        for rv, (_, _, (spec, kind, phase, ready)) in enumerate(timed, start=self.list_rv + 1):
-            st = state[spec.uid]
-            if phase is None:  # status churn: a restart or a readiness flip
-                if rng.random() < 0.5:
-                    st[2] += 1
-                else:
-                    st[1] = not st[1]
-            else:
-                st[0], st[1] = phase, ready
-            self.churn.append((kind, spec, *st, rv))
-        self.last_rv = self.list_rv + len(self.churn)
-        healthy = [m for key, members in jobset_workers.items() if key not in self.failed_jobsets for m in members]
-        self.down_deletions = [(s.namespace, s.name, s.uid) for s in rng.sample(healthy, down_deletions)]
-        # the node churn: one worker's node in each of node_flips + 1 healthy
-        # JobSets (one JobSet a node: every JobSet's workers sit on their own)
-        node_rng = random.Random(seed + 1)
-        healthy_sets = sorted(k for k in jobset_workers if k not in self.failed_jobsets)
-        picked = [node_rng.choice(jobset_workers[k]).spec["nodeName"]
-                  for k in node_rng.sample(healthy_sets, node_flips + 1)]
-        self.flipped_nodes, self.deleted_node = sorted(picked[:-1]), picked[-1]
-        first, second = len(self.churn) // 3, 2 * len(self.churn) // 3
-        self.node_steps = ([(first, "MODIFIED", n, False) for n in self.flipped_nodes]
-                           + [(first, "DELETED", self.deleted_node, None)]
-                           + [(second, "MODIFIED", n, True) for n in self.flipped_nodes])
-
-    def node_names(self):
-        """Every node of the cluster: the GPU nodes, then ``CPU_NODES`` nodes
-        without GPUs (the watcher's node selector leaves them out)."""
-        return [f"gpu-node-{i:04d}" for i in range(self.nodes)] + [f"cpu-node-{i}" for i in range(CPU_NODES)]
-
-    @staticmethod
-    def node(name: str, ready: bool, rv: int) -> dict:
-        """A Node as the apiserver serves it: the GPU operator's labels and
-        ``nvidia.com/gpu: 8`` capacity on the GPU nodes, and a Ready
-        condition."""
-        gpu = name.startswith("gpu-")
-        labels = {"kubernetes.io/hostname": name, "kubernetes.io/os": "linux"}
-        capacity = {"cpu": "96", "memory": "1056Gi", "pods": "110"}
-        if gpu:
-            labels.update({GPU_PRESENT_LABEL: "true", GPU_PRODUCT_LABEL: GPU_PRODUCT, "nvidia.com/gpu.count": "8"})
-            capacity[GPU_KEY] = "8"
-        conditions = [
-            {"type": kind, "status": "False", "reason": f"KubeletHas{suffix}", "message": f"kubelet has {text}",
-             "lastHeartbeatTime": T0, "lastTransitionTime": T0}
-            for kind, suffix, text in (("MemoryPressure", "SufficientMemory", "sufficient memory available"),
-                                       ("DiskPressure", "NoDiskPressure", "no disk pressure"))
-        ] + [{"type": "Ready", "status": "True" if ready else "False",
-              "reason": "KubeletReady" if ready else "KubeletNotReady",
-              "message": "kubelet is posting ready status" if ready else "Kubelet stopped posting node status.",
-              "lastHeartbeatTime": T0, "lastTransitionTime": T0}]
-        return {"apiVersion": "v1", "kind": "Node",
-                "metadata": {"name": name, "uid": f"node-{name}", "resourceVersion": str(rv), "labels": labels,
-                             "creationTimestamp": T0},
-                "spec": {"podCIDR": "10.64.0.0/24"},
-                "status": {"capacity": capacity, "allocatable": dict(capacity), "conditions": conditions}}
-
-    @staticmethod
-    def pods(steps):
-        """The steps as ``(type, pod dict)`` pairs."""
-        return [(kind, spec.pod(rv, phase, ready, restarts)) for kind, spec, phase, ready, restarts, rv in steps]
-
-    @staticmethod
-    def facts(steps):
-        """What the fold reads of each step, as ``facts_of`` reads it of a pod."""
-        return [(kind, spec.namespace, spec.name, spec.uid, spec.gpus, spec.jobset, phase,
-                 (("main", ready, restarts), ("log-agent", ready, 0)), spec.spec["nodeName"])
-                for kind, spec, phase, ready, restarts, _ in steps]
-
-
-def facts_of(kind: str, pod: dict) -> tuple:
-    """``(type, namespace, name, uid, GPUs requested, JobSet slice key or None,
-    phase, container (name, ready, restarts), node)`` of one watch event's
-    pod."""
-    meta = pod.get("metadata") or {}
-    labels = meta.get("labels") or {}
-    gpus = sum(int((c.get("resources") or {}).get("requests", {}).get(GPU_KEY, 0))
-               for c in (pod.get("spec") or {}).get("containers") or [])
-    jobset = f"{meta.get('namespace')}/{labels[JOBSET_LABEL]}/{labels[REPLICATED_LABEL]}" \
-        if JOBSET_LABEL in labels else None
-    ready = tuple((cs.get("name", ""), bool(cs.get("ready", False)), int(cs.get("restartCount", 0) or 0))
-                  for cs in (pod.get("status") or {}).get("containerStatuses") or [])
-    return (kind, meta.get("namespace", ""), meta.get("name", ""), meta.get("uid", ""), gpus, jobset,
-            (pod.get("status") or {}).get("phase", "Unknown"), ready, (pod.get("spec") or {}).get("nodeName"))
-
-
-def _slice_phase(members: dict, ever_ready: bool, had_members: bool, down=frozenset()) -> str:
-    """A slice's phase from its members' (phase, ready, node), with no
-    expected worker count (GPU JobSets carry no topology): a member that has
-    not succeeded on a node in ``down`` (NotReady, or deleted) degrades it."""
-    if not members:
-        return "Terminated" if had_members else "Forming"
-    phases = [phase for phase, _, _ in members.values()]
-    if any(p in ("Failed", "Unknown") for p in phases):
-        return "Degraded"
-    if any(node in down and p != "Succeeded" for p, _, node in members.values()):
-        return "Degraded"
-    if all(p == "Succeeded" for p in phases):
-        return "Completed"
-    if all(p == "Running" and ready for p, ready, _ in members.values()):
-        return "Ready"
-    return "Degraded" if ever_ready else "Forming"
-
-
-def fold_production(facts, namespaces=WATCHED_NAMESPACES, node_steps=(), critical=True, node_caused=None):
-    """The plain reference of what the watcher notifies, over ``facts`` in
-    watch order: the namespace filter, the GPU resource filter, and (with
-    ``critical``, the ``production`` rules) the critical gate (DELETED or a
-    terminal phase) on a significant change (first sighting, phase or
-    container-status change, deletion); ``critical=False`` is the
-    ``staging`` rules, which notify every significant change. And each
-    JobSet's slice phase, with the node events of ``node_steps`` (``(position,
-    type, node, ready)``, folded before ``facts[position]``): a NotReady or
-    deleted node degrades every slice with a member on it that has not
-    succeeded, and a node back Ready restores it.
-
-    Returns ``(last, transitions)``: the last pod notification per uid as
-    ``(event_type, phase, namespace, name)``, and each slice key's phase
-    transitions as ``(from, to)`` pairs. The transitions a node event causes
-    are appended to ``node_caused`` as ``(key, from, to)``."""
-    last, seen, slices, transitions = {}, {}, {}, {}
-    down = set()
-    pending = sorted(node_steps, key=lambda step: step[0])
-
-    def recompute(key, st, caused=None):
-        new = _slice_phase(st["members"], st["ever_ready"], st["had"], down)
-        st["ever_ready"] = st["ever_ready"] or new == "Ready"
-        if new != st["phase"]:
-            transitions.setdefault(key, []).append((st["phase"], new))
-            if caused is not None:
-                caused.append((key, st["phase"], new))
-            st["phase"] = new
-
-    def node_event(kind, node, ready):
-        if ready:
-            down.discard(node)
-        else:
-            down.add(node)
-        for key, st in slices.items():
-            if any(n == node for _, _, n in st["members"].values()):
-                recompute(key, st, node_caused)
-
-    for i, (kind, ns, name, uid, gpus, jobset, phase, ready, node) in enumerate(facts):
-        while pending and pending[0][0] <= i:
-            node_event(*pending.pop(0)[1:])
-        if (namespaces and ns not in namespaces) or not gpus:
-            continue
-        prev = seen.pop(uid, None) if kind == "DELETED" else seen.get(uid)
-        if kind != "DELETED":
-            seen[uid] = (phase, ready)
-        if (kind == "DELETED" or prev != (phase, ready)) and (
-                not critical or kind == "DELETED" or phase in ("Failed", "Succeeded")):
-            last[uid] = (kind, phase, ns, name)
-        if jobset is None:
-            continue
-        st = slices.setdefault(jobset, {"members": {}, "phase": "Forming", "ever_ready": False, "had": False})
-        if kind == "DELETED":
-            st["members"].pop(uid, None)
-        else:
-            st["members"][uid] = (phase, bool(ready) and all(r for _, r, _ in ready), node)
-        st["had"] = st["had"] or bool(st["members"])
-        recompute(jobset, st)
-    for step in pending:
-        node_event(*step[1:])
-    return last, transitions
 
 
 def fold_node_payloads(node_steps, environment: str) -> dict:
@@ -1194,7 +839,7 @@ def analytics_timings(torch, view, raw, config, dev, *, reference_calls: int = 5
     return out
 
 
-class ClusterStub:
+class ClusterStub(PodsAndLeases):
     """The apiserver side of phases 9 and 11.
 
     - ``GET /version``.
@@ -1211,7 +856,7 @@ class ClusterStub:
       hands to ``emit_nodes``.
     - Leases (``coordination.k8s.io/v1``): GET, POST (409 when it exists) and
       PUT (409 when ``metadata.resourceVersion`` is stale); every write is
-      logged with its time.
+      logged with its time (the LIST and the Leases: ``PodsAndLeases``).
     - Node PATCHes are counted and answered 404."""
 
     def __init__(self, cluster: GpuCluster, pauses=()):
@@ -1254,43 +899,8 @@ class ClusterStub:
 
     # -- pods ----------------------------------------------------------------
 
-    def page(self, params: dict) -> bytes:
-        limit = int(params.get("limit") or 0) or len(self.objects)
-        token = params.get("continue")
-        with self.lock:
-            if token:
-                list_id, offset = (int(x) for x in token.split(":"))
-                items, rv = self.snapshots[list_id]
-            else:
-                list_id, offset = self.pod_lists, 0
-                items, rv = list(self.objects.values()), self.rv
-                self.snapshots[list_id] = (items, rv)
-                self.pod_lists += 1
-                if self.first_pod_list_t is None:
-                    self.first_pod_list_t = time.monotonic()
-            self.list_pages += 1
-        end = offset + limit
-        more = f',"continue":"{list_id}:{end}"' if end < len(items) else ""
-        if not more:
-            with self.lock:
-                self.snapshots.pop(list_id, None)
-        return (f'{{"kind":"PodList","apiVersion":"v1","metadata":{{"resourceVersion":"{rv}"{more}}},"items":['
-                .encode() + b",".join(items[offset:end]) + b"]}")
-
     def release(self, position: int) -> None:
         self.pauses[position].set()
-
-    def _chunked(self, handler):
-        handler.send_response(200)
-        handler.send_header("Content-Type", "application/json")
-        handler.send_header("Transfer-Encoding", "chunked")
-        handler.end_headers()
-        out = handler.wfile
-
-        def write(data: bytes) -> None:
-            out.write(b"%x\r\n%s\r\n" % (len(data), data))
-
-        return out, write
 
     def watch(self, handler, params: dict) -> None:
         rv = int(params.get("resourceVersion") or 0)
@@ -1414,31 +1024,6 @@ class ClusterStub:
             out.write(b"0\r\n\r\n")
         except (BrokenPipeError, ConnectionResetError):
             pass
-
-    # -- leases --------------------------------------------------------------
-
-    def lease(self, method: str, path: str, body) -> tuple:
-        parts = path[len(LEASE_PATH):].split("/")  # {ns}/leases[/{name}]
-        namespace, name = parts[0], (parts[2] if len(parts) > 2 else (body or {}).get("metadata", {}).get("name"))
-        key = (namespace, name)
-        with self.lock:
-            current = self.leases.get(key)
-            if method == "GET":
-                return (200, current) if current else (404, {"kind": "Status", "code": 404})
-            if method == "POST" and current is not None:
-                return 409, {"kind": "Status", "code": 409, "reason": "AlreadyExists"}
-            if method == "PUT":
-                if current is None:
-                    return 404, {"kind": "Status", "code": 404}
-                if (body.get("metadata") or {}).get("resourceVersion") != current["metadata"]["resourceVersion"]:
-                    return 409, {"kind": "Status", "code": 409, "reason": "Conflict"}
-            self.lease_rv += 1
-            lease = {"apiVersion": "coordination.k8s.io/v1", "kind": "Lease",
-                     "metadata": {"name": name, "namespace": namespace, "resourceVersion": str(self.lease_rv)},
-                     "spec": dict(body.get("spec") or {})}
-            self.leases[key] = lease
-            self.lease_log.append((time.monotonic(), method, dict(lease["spec"])))
-            return (201 if method == "POST" else 200), lease
 
 
 class _StubHandler(BaseHTTPRequestHandler):

@@ -43,6 +43,7 @@ from k8s_watcher_tpu_torch.notify.dispatcher import Dispatcher, build_notifier
 from k8s_watcher_tpu_torch.pipeline.filters import CriticalEventGate, NamespaceFilter, TpuResourceFilter
 from k8s_watcher_tpu_torch.pipeline.phase import PhaseTracker
 from k8s_watcher_tpu_torch.pipeline.pipeline import EventPipeline, Notification
+from k8s_watcher_tpu_torch.probe import spans
 from k8s_watcher_tpu_torch.slices.tracker import SliceTracker
 from k8s_watcher_tpu_torch.state.checkpoint import CheckpointStore
 from k8s_watcher_tpu_torch.status import Liveness, StatusServer
@@ -139,6 +140,7 @@ def build_source(
             list_page_size=config.watcher.list_page_size,
             shard=shard,
             shards=shards,
+            on_taken=spans.take,
         ))
     if shards > 1:
         logger.info("Sharded ingest: %d watch streams (uid-hash partition)", shards)
@@ -340,8 +342,11 @@ class WatcherApp:
 
             self.slo = SLOPlane(config.slo, self.metrics)
         c = config.clusterapi
+        # each egress POST is a watcher span (notify.post)
+        post = spans.traced("notify.post", keep=True)
+        send_batch = getattr(self.notifier, "update_pod_statuses", None) if c.batch_max > 1 else None
         self.dispatcher = Dispatcher(
-            self.notifier.update_pod_status,
+            post(self.notifier.update_pod_status),
             capacity=c.queue_capacity,
             # egress fan-out scales with the ingest fan-in unless pinned
             workers=c.resolved_workers(config.ingest.shards),
@@ -353,7 +358,7 @@ class WatcherApp:
             abort=getattr(self.notifier, "abort", None),
             # micro-batching under backlog; a receiver without the batch
             # endpoint falls back per item
-            send_batch=getattr(self.notifier, "update_pod_statuses", None) if c.batch_max > 1 else None,
+            send_batch=post(send_batch) if send_batch is not None else None,
             batch_max=c.batch_max,
             tracer=self.tracer,
             audit=self.audit,
@@ -546,7 +551,8 @@ class WatcherApp:
                 if self._stop.is_set():
                     break
                 self.liveness.beat()
-                self.pipeline.process_batch(batch)
+                with spans.watch_span("watch.batch"):
+                    self.pipeline.process_batch(batch)
                 self._maybe_checkpoint()
         except KeyboardInterrupt:
             logger.info("Stopping Pod watcher...")

@@ -50,6 +50,7 @@ class KubernetesWatchSource:
         list_page_size: int = 500,  # LIST pagination (limit+continue)
         shard: int = 0,  # this stream's shard index (uid-hash partition)
         shards: int = 1,  # total shard streams; 1 = whole cluster
+        on_taken=None,  # Callable[[int], None]: the watch events each frame carries, bookmarks aside
     ):
         if not 0 <= shard < shards:
             raise ValueError(f"shard {shard} out of range for {shards} shards")
@@ -67,6 +68,7 @@ class KubernetesWatchSource:
         self.metrics = metrics
         self.shard = shard
         self.shards = shards
+        self.on_taken = on_taken
         # pushed to the server (mock apiserver / shard-aware proxy honor
         # it; a stock apiserver ignores it and the client-side ownership
         # checks below keep the partition correct)
@@ -402,8 +404,11 @@ class KubernetesWatchSource:
                         # prefilter dropped unparsed (no accelerator key —
                         # the pipeline's resource filter would drop them too;
                         # one marker may stand for a coalesced run of them)
-                        if event_type == EventType.PREFILTERED and self.metrics is not None:
-                            self.metrics.counter("events_prefiltered").inc(raw.get("count", 1))
+                        if event_type == EventType.PREFILTERED:
+                            if self.metrics is not None:
+                                self.metrics.counter("events_prefiltered").inc(raw.get("count", 1))
+                            if self.on_taken is not None:
+                                self.on_taken(raw.get("count", 1))
                         # a delivered frame proves the stream is healthy — in
                         # an all-non-TPU cluster these may be the ONLY frames,
                         # so backoff must reset here too or one blip escalates
@@ -413,6 +418,8 @@ class KubernetesWatchSource:
                         gone_streak = 0
                         self._save_rv(rv)
                         continue
+                    if self.on_taken is not None:
+                        self.on_taken(1)
                     if (
                         self.shards > 1
                         and shard_of(meta.get("uid") or "", self.shards) != self.shard

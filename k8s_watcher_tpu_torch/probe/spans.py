@@ -1,4 +1,4 @@
-"""Spans and counters inside the probe cycle.
+"""Spans and counters inside the probe cycle, and the watcher's own.
 
 A span is ``(name, parent, start, end, thread)``: ``start`` and ``end`` are
 ``time.monotonic()`` seconds, the clock of the trace plane's ``(stage, start,
@@ -10,12 +10,23 @@ it. Spans opened outside any cycle (a probe run on its own) keep the parent
 chain and are then dropped.
 
 Completed cycles go into one ring of ``RING_CYCLES`` for the process
-(:func:`cycles_between`). A span costs two ``monotonic()`` calls and an
-append. While ``torch.profiler`` records, each span also opens a
-``RecordFunction`` range of its name (what ``record_function`` opens) inside
-its stamps, so a profiler trace shows the stages around the kernels they
-launched, at one offset from the spans' clock; with the profiler off no range
-is opened.
+(:func:`cycles_between`).
+
+The watcher's threads open spans outside any cycle: :func:`watch_span`
+(``watch.batch``, one ingest batch through the pipeline to the egress lanes;
+``notify.post``, one egress POST). Such a span, and every span its thread
+opens inside it, goes into a ring of ``WATCH_RING`` spans of its own when it
+closes (:func:`watch_between`); opened inside a cycle, it is the cycle's.
+:func:`take` counts the events the watch streams delivered (``watch_events``:
+each one parsed, and each one the prefilter dropped unparsed); the count
+reached is stamped at each outermost watcher span's end, so a window reads
+the events taken between two stamps.
+
+A span costs two ``monotonic()`` calls and an append. While
+``torch.profiler`` records, each span also opens a ``RecordFunction`` range
+of its name (what ``record_function`` opens) inside its stamps, so a
+profiler trace shows the stages around the kernels they launched, at one
+offset from the spans' clock; with the profiler off no range is opened.
 
 Each cycle's counters: ``syncs`` (its ``probe.sync`` spans: the blocking
 readbacks outside the timed launches, which read back through the bare
@@ -43,6 +54,7 @@ from typing import Dict, List, Optional
 import torch
 
 RING_CYCLES = 1024  # > 8 h at production's 30 s cadence
+WATCH_RING = 1 << 16  # watcher spans: minutes of batches and POSTs at a busy ingest
 CYCLE = "probe.cycle"
 SYNC = "probe.sync"
 
@@ -141,6 +153,7 @@ def _device_allocs(device) -> Optional[int]:
 class _Thread(threading.local):
     def __init__(self):
         self.stack: List[Span] = []
+        self.kept = 0  # watcher spans open on this thread outside a cycle
         self.cycle: Optional[Cycle] = None  # open on this thread
         self.last: Optional[Cycle] = None  # the last one closed on this thread
         self.tid = threading.get_native_id()
@@ -149,10 +162,10 @@ class _Thread(threading.local):
 class _Scope:
     """``with recorder.span(name):`` — see :meth:`SpanRecorder.span`."""
 
-    __slots__ = ("rec", "name", "device", "span", "range")
+    __slots__ = ("rec", "name", "device", "span", "range", "keep")
 
-    def __init__(self, rec: "SpanRecorder", name: str, device=None):
-        self.rec, self.name, self.device = rec, name, device
+    def __init__(self, rec: "SpanRecorder", name: str, device=None, keep: bool = False):
+        self.rec, self.name, self.device, self.keep = rec, name, device, keep
         self.span = self.range = None
 
     def __enter__(self) -> Span:
@@ -164,6 +177,10 @@ class _Scope:
         st.stack.append(span)
         if self.name == CYCLE and st.cycle is None:
             self.rec._open_cycle(st, span, self.device)
+        elif self.keep:
+            # from here on ``keep`` says whether this span counts in the thread's open watcher spans
+            self.keep = st.cycle is None
+            st.kept += self.keep
         return span
 
     def __exit__(self, *exc) -> None:
@@ -178,18 +195,25 @@ class _Scope:
             cycle.spans.append(span)
             if cycle.span is span:
                 self.rec._close_cycle(st, cycle)
+        elif st.kept:
+            self.rec._keep(span, outermost=self.keep and st.kept == 1)
+            st.kept -= self.keep
 
 
 class SpanRecorder:
     """The spans of the cycles of a process, and its ring of completed ones."""
 
-    def __init__(self, capacity: int = RING_CYCLES):
+    def __init__(self, capacity: int = RING_CYCLES, watch_capacity: int = WATCH_RING):
         self._ring: collections.deque = collections.deque(maxlen=capacity)
         self._lock = threading.Lock()
         self._local = _Thread()
         self._cycles_open = 0  # on every thread; the GC hook is in while above 0
         self._gc_ms = 0.0
         self._gc_t0: Optional[float] = None
+        self._watch: collections.deque = collections.deque(maxlen=watch_capacity)
+        self._stamps: collections.deque = collections.deque(maxlen=watch_capacity)  # (end, events taken)
+        self._taken = 0
+        self._taken_lock = threading.Lock()
 
     @property
     def capacity(self) -> int:
@@ -208,13 +232,19 @@ class SpanRecorder:
         counted."""
         return _Scope(self, CYCLE, device)
 
-    def traced(self, name: str):
-        """A decorator: every call of the function is a span ``name``."""
+    def watch_span(self, name: str) -> _Scope:
+        """``with recorder.watch_span(name):`` a span of the watcher's, kept
+        in the watcher ring when no cycle is open on its thread."""
+        return _Scope(self, name, keep=True)
+
+    def traced(self, name: str, keep: bool = False):
+        """A decorator: every call of the function is a span ``name`` (a
+        watcher span with ``keep``)."""
 
         def wrap(fn):
             @functools.wraps(fn)
             def spanned(*args, **kwargs):
-                with _Scope(self, name):
+                with _Scope(self, name, keep=keep):
                     return fn(*args, **kwargs)
 
             return spanned
@@ -232,6 +262,27 @@ class SpanRecorder:
         with self._lock:
             cycles = list(self._ring)
         return [c for c in cycles if t0 <= c.start and c.end <= t1]
+
+    def take(self, n: int = 1) -> None:
+        """Count ``n`` events taken off the watch streams."""
+        with self._taken_lock:
+            self._taken += n
+
+    def taken(self) -> int:
+        """The events taken off the watch streams so far in the process."""
+        return self._taken
+
+    def watch_between(self, t0: float, t1: float):
+        """``(spans, events)``: the watcher spans lying wholly in ``[t0, t1]``
+        (monotonic), oldest first, and the events taken between the last
+        stamps at or before ``t0`` and ``t1``."""
+        with self._lock:
+            kept, stamps = list(self._watch), list(self._stamps)
+
+        def at(t: float) -> int:
+            return max((n for end, n in stamps if end <= t), default=0)
+
+        return [s for s in kept if t0 <= s.start and s.end <= t1], at(t1) - at(t0)
 
     def last(self) -> Optional[Cycle]:
         """The last cycle completed on this thread."""
@@ -263,6 +314,12 @@ class SpanRecorder:
                 self._gc_t0 = None  # a collection in flight is no longer timed
             self._ring.append(cycle)
 
+    def _keep(self, span: Span, outermost: bool) -> None:
+        with self._lock:
+            self._watch.append(span)
+            if outermost:
+                self._stamps.append((span.end, self._taken))
+
     def _on_gc(self, phase: str, info: dict) -> None:
         # takes no lock: a collection can start inside any allocation,
         # including one made while this recorder's lock is held; one
@@ -283,3 +340,6 @@ cycle = RECORDER.cycle
 traced = RECORDER.traced
 count = RECORDER.count
 cycles_between = RECORDER.cycles_between
+watch_span = RECORDER.watch_span
+take = RECORDER.take
+watch_between = RECORDER.watch_between
